@@ -6,22 +6,33 @@
 Phases, each of which fails the script with a non-zero exit:
 
 1. card: a CUDA device must be present; prints its name and power limit;
-2. build: compiles every kernel of ``scl_deepfake_audio_detection_torch/csrc``
-   with nvcc and prints the ``-Xptxas -v`` report;
-3. kernel vs plain: the flash-attention forward against its plain PyTorch
-   version at [2, 16, T, 64], T in {199, 201, 1024}, kv_len in {None, T-13},
-   bf16 and fp32, O and LSE within stated tolerances;
+2. build: compiles every kernel source of
+   ``scl_deepfake_audio_detection_torch/csrc`` with nvcc, one process per
+   source, all at once, and prints the ``-Xptxas -v`` reports;
+3. kernels vs plain: the flash-attention forward (O and LSE) and the two
+   backward kernels (dq, dk, dv) against their plain PyTorch versions at
+   [2, 16, T, 64], T in {199, 201, 1024}, kv_len in {None, T-13}, bf16 and
+   fp32, within stated tolerances; dk and dv rows at keys >= kv_len must be
+   exactly 0; autograd through ``self_attention`` against autograd through
+   ``attention_reference``; and at [1, 16, 4096, 64] bf16 the peak memory
+   of forward plus backward must stay below one fp32 [T, T] score tensor;
 4. golden: the committed golden checkpoint scored on the card through the
    kernel (tiny config, fp32, TF32 off) reproduces
-   ``tests/golden/expected_scores.txt`` within 1e-4;
-5. main path: ``--eval`` through the port's CLI with XLS-R 300M + LinearNLL
-   (seeded random init, bf16) at [16, 64600]; the kernel must launch 24
-   times per forward, every log-prob row must be finite and normalised,
-   and the scores must agree with the same forward at impl='reference';
-6. times: at the main-path shape [16, 16, 201, 64] bf16 the kernel is
-   checked against its plain version once more, then CUDA-event times of
-   the kernel, its plain version and ``F.scaled_dot_product_attention`` (a
-   yardstick only; the port never calls it), eval utt/s and peak memory.
+   ``tests/golden/expected_scores.txt`` within 1e-4; then three training
+   steps from it through the kernels match the same steps at
+   impl='reference', and a train-state save and load gives identical scores;
+5. main paths: ``--eval`` through the port's CLI with XLS-R 300M + LinearNLL
+   (seeded random init, bf16) at [16, 64600], with 24 forward launches per
+   forward, finite normalised log-probs and scores that agree with
+   impl='reference'; then ``Engine.fit`` of the conf-3 model (bf16, remat
+   'attn') for one epoch of three [2, 11, 64000] steps and one dev batch,
+   with every metric finite and the launch counts the remat policy implies;
+6. times: CUDA-event times of each kernel at its main-path shape (the
+   forward at [16, 16, 201, 64], the backward kernels at [22, 16, 199, 64]
+   bf16), of its plain version and of the PyTorch yardstick
+   (``F.scaled_dot_product_attention``, its backward for the backward
+   kernels; the port never calls it), each kernel's bound, eval utt/s, ms
+   per train step and peak memory.
 
 The line before the last is a JSON object with one entry per kernel, the
 line before it the card's name and power limit, and the last line
@@ -55,11 +66,36 @@ BF16_FLOPS_PER_S = 989e12
 # scores in both, up to summation order.
 TOL = {torch.float32: {"o": 2e-5, "lse": 1e-5},
        torch.bfloat16: {"o": 3e-2, "lse": 1e-4}}
+# Backward kernels vs their plain versions.  fp32: the same fp32 arithmetic,
+# summed in another order.  bf16: both round P and dS to bf16 at the same
+# points, from fp32 sums taken in another order, and round the results to
+# bf16, so a value may land one bf16 step away: each of dq, dk and dv is held
+# to one bf16 ulp of its largest magnitude (2^-7 of max |x|), plus the fp32
+# tolerance for gradients that are zero up to rounding (T = 1).
+TOL_BWD = {torch.float32: lambda ref: 2e-5,
+           torch.bfloat16: lambda ref: 2e-5 + 2.0 ** -7 * ref.abs().max().item()}
+# Autograd through the kernels vs autograd through attention_reference: in
+# bf16 the reference rounds P after normalising and rounds dP to bf16 in the
+# cast's backward, where the kernels keep dP in fp32: 4 bf16 ulps of max |g|.
+TOL_GRAD = {torch.float32: lambda ref: 2e-5,
+            torch.bfloat16: lambda ref: 2.0 ** -5 * ref.abs().max().item()}
 GOLDEN_ATOL = 1e-4  # as tests/test_golden_pipeline.py
+# Golden train steps, kernels vs impl='reference', fp32 with TF32 off: the
+# same arithmetic in another summation order.  The attention key bias is
+# left out of the parameter check: its true gradient is 0 (the softmax
+# removes a per-row constant), so Adam turns rounding noise into full steps.
+TRAIN_ATOL = 1e-5
 # Main path, kernel vs impl='reference' over 24 bf16 layers: the two cores
 # round P at different points, and the bf16 residual stream carries that on.
 MAIN_PATH_ATOL = 5e-2
 MAIN_SHAPE = (16, 16, 201, 64)  # XLS-R 300M at [16, 64600]: B, H, T, D
+TRAIN_SHAPE = (22, 16, 199, 64)  # XLS-R 300M at [2 x 11, 64000]
+CONF3 = dict(groups=2, views=11, samples=64000, steps=3, seed=1234)
+REPLACES = {
+    "flash_attn_fwd": "scl_deepfake_audio_detection_tpu/ops/attention.py:144",
+    "flash_attn_bwd_dq": "scl_deepfake_audio_detection_tpu/ops/attention.py:305",
+    "flash_attn_bwd_dkv": "scl_deepfake_audio_detection_tpu/ops/attention.py:328",
+}
 
 
 def card_line() -> str:
@@ -108,10 +144,14 @@ def read_scores(path):
 def phase_build(K):
     t0 = time.perf_counter()
     info = K.build()
-    print(f"[build] {len(info)} kernel(s) in {time.perf_counter() - t0:.2f}s")
+    print(f"[build] {len(info)} kernels from {len(set(K.SOURCES.values()))} sources "
+          f"in {time.perf_counter() - t0:.2f}s")
+    shown = set()
     for name, rec in info.items():
         print(f"[build] {name}: {rec['path']}")
-        print(rec["log"].strip())
+        if rec["path"] not in shown:
+            shown.add(rec["path"])
+            print(rec["log"].strip())
 
 
 def phase_kernel_vs_plain(K, A):
@@ -315,6 +355,281 @@ def phase_times(K, A, card):
             "library_ms": lib}
 
 
+def _bwd_inputs(shape, dtype, g):
+    q = (torch.randn(shape, device="cuda", generator=g) / 8).to(dtype)
+    k, v, do = (torch.randn(shape, device="cuda", generator=g).to(dtype) for _ in range(3))
+    return q, k, v, do
+
+
+def _bwd_check(K, A, q, k, v, do, kv_len):
+    """Both backward kernels against their plain versions on one input;
+    returns {kernel: its worst error} and fails on a tolerance or on a
+    non-zero dk/dv row past kv_len."""
+    o, lse = K.flash_attn_fwd(q, k, v, kv_len)
+    delta = (do.float() * o.float()).sum(-1)
+    got = (K.flash_attn_bwd_dq(q, k, v, do, lse, delta, kv_len),
+           *K.flash_attn_bwd_dkv(q, k, v, do, lse, delta, kv_len))
+    torch.cuda.synchronize()
+    want = (A.flash_bwd_dq_reference(q, k, v, do, lse, delta, kv_len),
+            *A.flash_bwd_dkv_reference(q, k, v, do, lse, delta, kv_len))
+    errs, msgs = {}, []
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        err = (a.float() - b.float()).abs().max().item()
+        tol = TOL_BWD[q.dtype](b.float())
+        msgs.append(f"{name} {err:.3e} (tol {tol:.1e})")
+        if err > tol:
+            raise AssertionError(f"{name} kernel disagrees with its plain version "
+                                 f"({q.dtype}, {tuple(q.shape)}, kv_len={kv_len})")
+        errs[name] = err
+    dead = 0.0
+    if kv_len is not None and kv_len < q.shape[2]:
+        dead = max(got[1][:, :, kv_len:].abs().max().item(),
+                   got[2][:, :, kv_len:].abs().max().item())
+        if dead != 0.0:
+            raise AssertionError("dk/dv rows past kv_len are not exactly 0")
+    worst = {"flash_attn_bwd_dq": errs["dq"], "flash_attn_bwd_dkv": max(errs["dk"], errs["dv"])}
+    return worst, "  ".join(msgs) + f"  |dk, dv past kv_len| {dead}"
+
+
+def phase_backward_vs_plain(K, A):
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for dtype in (torch.bfloat16, torch.float32):
+        for t in (199, 201, 1024):
+            for kv_len in (None, t - 13):
+                inputs = _bwd_inputs((2, 16, t, 64), dtype, g)
+                _, msg = _bwd_check(K, A, *inputs, kv_len)
+                print(f"[backward] {str(dtype):15s} T={t:5d} kv_len={kv_len!s:5s} {msg}  ok")
+
+
+def phase_autograd(K, A):
+    """torch.autograd through self_attention on the card (the three kernels)
+    against torch.autograd through attention_reference."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for dtype in (torch.bfloat16, torch.float32):
+        for t, kv_len in ((199, None), (201, 188)):
+            q, k, v, do = _bwd_inputs((2, 16, t, 64), dtype, g)
+            grads = {}
+            for impl in ("auto", "reference"):
+                x = [a.clone().requires_grad_() for a in (q, k, v)]
+                K.reset_launches()
+                out = A.self_attention(*x, kv_len=kv_len, impl=impl)
+                grads[impl] = torch.autograd.grad(out, x, do)
+                torch.cuda.synchronize()
+                n = dict(K.LAUNCHES)
+                want = 1 if impl == "auto" else 0
+                if any(c != want for c in n.values()):
+                    raise AssertionError(f"impl={impl} launched {n}")
+            msgs = []
+            for name, a, b in zip(("dq", "dk", "dv"), grads["auto"], grads["reference"]):
+                err = (a.float() - b.float()).abs().max().item()
+                tol = TOL_GRAD[dtype](b.float())
+                msgs.append(f"{name} {err:.3e} (tol {tol:.1e})")
+                if err > tol:
+                    raise AssertionError(f"autograd {name} disagrees ({dtype}, T={t})")
+            print(f"[autograd] {str(dtype):15s} T={t:5d} kv_len={kv_len!s:5s} "
+                  f"{'  '.join(msgs)}  ok")
+
+
+def phase_memory(A):
+    """Forward plus backward at T = 4096 must not hold a [T, T] tensor."""
+    shape = (1, 16, 4096, 64)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, do = _bwd_inputs(shape, torch.bfloat16, g)
+    x = [a.requires_grad_() for a in (q, k, v)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    grads = torch.autograd.grad(A.self_attention(*x), x, do)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    limit = shape[1] * shape[2] ** 2 * 4  # one fp32 [H, T, T] score tensor
+    print(f"[memory] {list(shape)} bf16 forward + backward: peak {peak / 2**20:.1f} MiB "
+          f"above the inputs (limit {limit / 2**20:.0f} MiB, one fp32 [T, T] score "
+          f"tensor)")
+    if peak >= limit or not all(torch.isfinite(a).all() for a in grads):
+        raise AssertionError("flash backward at T=4096 held a [T, T]-sized buffer")
+
+
+def _golden_train_batches(n=3):
+    rng = np.random.default_rng(20240817)
+    labels = np.tile([1.0, 1.0, 0.0, 0.0], (2, 1)).astype(np.float32)
+    return [{"wav": (0.2 * rng.normal(size=(2, 4, 8000))).astype(np.float32),
+             "labels": labels} for _ in range(n)]
+
+
+def phase_golden_train(K):
+    """Three train steps from the golden checkpoint (tiny, fp32, TF32 off)
+    through the kernels against impl='reference', then a train-state round
+    trip."""
+    from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.train import checkpoint as ckpt
+    from scl_deepfake_audio_detection_torch.train.engine import Engine, score_step
+    from scl_deepfake_audio_detection_torch.train.optim import set_learning_rate
+    from scl_deepfake_audio_detection_torch.utils.config import TrainConfig
+
+    tree = ckpt.load(GOLDEN_CKPT)[0]["params"]
+    batches = _golden_train_batches()
+    cfg = TrainConfig(seed=7)
+    runs = {}
+    for impl in ("auto", "reference"):
+        model = LinearNLL(ssl=XLSRConfig.tiny(attention_impl=impl), emb_dim=16, device="cuda")
+        eng = Engine(model, cfg)
+        eng.init_state(params=tree)
+        set_learning_rate(eng.optimizer, 1e-4)
+        K.reset_launches()
+        metrics = eng.run_epoch(batches, epoch=0)
+        torch.cuda.synchronize()
+        runs[impl] = (eng, metrics, dict(K.LAUNCHES))
+    (eng, m_k, n_k), (eng_r, m_r, n_r) = runs["auto"], runs["reference"]
+    layers = eng.model.ssl.cfg.encoder_layers
+    want_k = {name: layers * len(batches) for name in K.KERNELS}
+    if n_k != want_k or any(n_r.values()):
+        raise AssertionError(f"golden train launches {n_k} (want {want_k}), "
+                             f"reference {n_r}")
+    err_m = max(abs(m_k[k] - m_r[k]) for k in m_r)
+    ref_params = dict(eng_r.model.named_parameters())
+    err_p = max((p - ref_params[n]).abs().max().item()
+                for n, p in eng.model.named_parameters() if not n.endswith("attn.k.bias"))
+    finite = all(np.isfinite(v) for v in m_k.values())
+    print(f"[golden-train] 3 steps, tiny fp32: loss {m_k['loss']:.6f} (kernels) vs "
+          f"{m_r['loss']:.6f} (reference); max |metric diff| {err_m:.3e}, max |param "
+          f"diff| {err_p:.3e} (tol {TRAIN_ATOL:.0e}); launches {n_k}")
+    if not finite or err_m > TRAIN_ATOL or err_p > TRAIN_ATOL:
+        raise AssertionError("golden train steps through the kernels disagree with "
+                             "impl='reference'")
+
+    wav = batches[0]["wav"].reshape(8, -1)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "last.ckpt")
+        ckpt.save_train_state(path, eng.model, eng.optimizer, 0, cfg.seed, 90.0)
+        other = Engine(LinearNLL(ssl=XLSRConfig.tiny(), emb_dim=16, device="cuda"), cfg)
+        other.init_state()
+        epoch, best, _ = ckpt.load_train_state(path, other.model, other.optimizer)
+    same = torch.equal(score_step(eng.model, wav), score_step(other.model, wav))
+    sa, sb = eng.optimizer.state_arrays(), other.optimizer.state_arrays()
+    same_opt = sorted(sa) == sorted(sb) and all(
+        torch.equal(sa[k].cpu(), sb[k].cpu()) for k in sa)
+    print(f"[golden-train] train state saved and loaded: epoch {epoch}, best {best}, "
+          f"identical scores {same}, identical optimizer state {same_opt}")
+    if not (same and same_opt):
+        raise AssertionError("train-state round trip changed the model")
+
+
+def conf3_batches(n, seed):
+    """conf-3 view batches: G groups of 5 bonafide and 6 spoof views."""
+    c = CONF3
+    rng = np.random.default_rng(seed)
+    labels = np.tile(np.array([1.0] * 5 + [0.0] * 6, np.float32), (c["groups"], 1))
+    return [{"wav": (0.1 * rng.normal(size=(c["groups"], c["views"], c["samples"])))
+             .astype(np.float32), "labels": labels} for _ in range(n)]
+
+
+def phase_train_main_path(K, card):
+    """Engine.fit of the conf-3 model for one epoch, then ms per step."""
+    from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.train.engine import Engine
+    from scl_deepfake_audio_detection_torch.utils.config import TrainConfig
+
+    c = CONF3
+    cfg = TrainConfig(num_epochs=1, seed=c["seed"])  # bf16 and remat are its defaults
+    ssl = XLSRConfig.xlsr_300m(compute_dtype=cfg.compute_dtype, remat=cfg.remat,
+                               remat_policy="attn")
+    eng = Engine(LinearNLL(ssl=ssl, device="cuda", seed=c["seed"]), cfg)
+    eng.init_state()
+    train, dev = conf3_batches(c["steps"], c["seed"]), conf3_batches(1, c["seed"] + 1)
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    records = eng.fit(lambda: train, lambda: dev, save_dir=None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    # remat 'attn' recomputes the attention block, flash forward included, in
+    # the backward: 2 forward launches per layer per train step, 1 per dev
+    # forward; one dq and one dkv launch per layer per train step
+    layers, steps = ssl.encoder_layers, c["steps"]
+    want = {"flash_attn_fwd": 2 * layers * steps + layers,
+            "flash_attn_bwd_dq": layers * steps, "flash_attn_bwd_dkv": layers * steps}
+    rec = records[0] if records else {}
+    nums = {k: v for k, v in rec.items() if isinstance(v, float)}
+    print(f"[train] Engine.fit XLS-R 300M + LinearNLL bf16 remat 'attn', "
+          f"{steps} steps of [{c['groups']}, {c['views']}, {c['samples']}] + 1 dev batch "
+          f"in {wall:.2f}s (incl. first-step set-up): " + ", ".join(
+              f"{k} {v:.6g}" for k, v in nums.items()))
+    print(f"[train] launches {launches}, expected {want}")
+    if len(records) != 1 or not all(np.isfinite(v) for v in nums.values()):
+        raise AssertionError(f"non-finite or missing training metrics: {rec}")
+    if launches != want:
+        raise AssertionError("the training main path did not launch the kernels as expected")
+
+    placed = [eng.place_batch(b) for b in train]
+    eng.train_step(placed[0])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    iters = 6
+    t0 = time.perf_counter()
+    for i in range(iters):
+        eng.train_step(placed[i % len(placed)])
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / iters * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[times] {card}: train step [{c['groups']}, {c['views']}, {c['samples']}] bf16 "
+          f"remat 'attn', batch on the card: {step_ms:.2f} ms/step "
+          f"({c['groups'] * c['views'] / step_ms * 1e3:.2f} views/s), peak memory "
+          f"{peak / 2**30:.3f} GiB")
+    return launches
+
+
+def _bound(nbytes, flops):
+    bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
+    return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations", \
+        f"{nbytes / 1e6:.2f} MB -> {bytes_ms:.4f} ms, {flops / 1e9:.3f} GFLOP -> {flops_ms:.4f} ms"
+
+
+def phase_backward_times(K, A, card):
+    """Each backward kernel at the train shape against its plain version,
+    the sdpa backward and its bound."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v, do = _bwd_inputs(TRAIN_SHAPE, torch.bfloat16, g)
+    err, msg = _bwd_check(K, A, q, k, v, do, None)
+    print(f"[backward] train shape {list(TRAIN_SHAPE)} bf16: {msg}")
+    o, lse = K.flash_attn_fwd(q, k, v)
+    delta = (do.float() * o.float()).sum(-1)
+    fwd_ms = cuda_ms(lambda: K.flash_attn_fwd(q, k, v))
+    qr, kr, vr = (a.clone().requires_grad_() for a in (q, k, v))
+    sdpa_f = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, vr, scale=1.0))
+    sdpa_fb = cuda_ms(lambda: torch.autograd.grad(
+        F.scaled_dot_product_attention(qr, kr, vr, scale=1.0), (qr, kr, vr), do))
+    lib = sdpa_fb - sdpa_f
+    b, h, t, d = TRAIN_SHAPE
+    n = q.numel() * q.element_size()
+    stats = 2 * b * h * t * 4  # L and D, fp32
+    out = {}
+    for name, kern, plain, nbytes, flops in (
+            ("flash_attn_bwd_dq",
+             lambda: K.flash_attn_bwd_dq(q, k, v, do, lse, delta),
+             lambda: A.flash_bwd_dq_reference(q, k, v, do, lse, delta),
+             5 * n + stats, 6 * b * h * t * t * d),
+            ("flash_attn_bwd_dkv",
+             lambda: K.flash_attn_bwd_dkv(q, k, v, do, lse, delta),
+             lambda: A.flash_bwd_dkv_reference(q, k, v, do, lse, delta),
+             6 * n + stats, 8 * b * h * t * t * d)):
+        p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
+        bound, by, detail = _bound(nbytes, flops)
+        print(f"[times] {card}: {name} {list(TRAIN_SHAPE)} bf16: kernel {k1:.4f}/{k2:.4f} ms, "
+              f"plain {p1:.4f}/{p2:.4f} ms, sdpa backward (dq, dk, dv together) "
+              f"{lib:.4f} ms, bound {bound:.4f} ms ({detail})")
+        out[name] = {"max_abs_err": err[name], "ms": min(k1, k2), "plain_ms": min(p1, p2),
+                     "bound_ms": bound, "bound_by": by, "library_ms": lib}
+    print(f"[times] {card}: at the train shape, flash_attn_fwd {fwd_ms:.4f} ms, sdpa "
+          f"forward {sdpa_f:.4f} ms, sdpa forward + backward {sdpa_fb:.4f} ms")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's card path needs one",
@@ -331,20 +646,29 @@ def main() -> int:
     t_start = time.perf_counter()
     phase_build(K)
     phase_kernel_vs_plain(K, A)
+    phase_backward_vs_plain(K, A)
+    phase_autograd(K, A)
+    phase_memory(A)
     phase_golden(K)
+    phase_golden_train(K)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_main_path(K, tmp)
-    times = phase_times(K, A, card)
-    print(f"[done] all phases in {time.perf_counter() - t_start:.1f}s")
-    kernel = {
-        "name": "flash_attn_fwd",
+        eval_launches = phase_main_path(K, tmp)
+    fwd_times = phase_times(K, A, card)
+    torch.cuda.empty_cache()
+    launches = phase_train_main_path(K, card)
+    torch.cuda.empty_cache()
+    times = {"flash_attn_fwd": fwd_times, **phase_backward_times(K, A, card)}
+    print(f"[done] all phases in {time.perf_counter() - t_start:.1f}s; launches on the "
+          f"eval main path {eval_launches}, on the training main path {launches}")
+    kernels = [{
+        "name": name,
         "route": "cuda",
-        "source": "scl_deepfake_audio_detection_torch/csrc/flash_attn_fwd.cu",
-        "replaces": "scl_deepfake_audio_detection_tpu/ops/attention.py:144",
-        "launches": launches,
-        **times,
-    }
-    print(json.dumps({"kernels": [kernel]}))
+        "source": f"scl_deepfake_audio_detection_torch/csrc/{K.SOURCES[name]}",
+        "replaces": REPLACES[name],
+        "launches": launches[name],
+        **times[name],
+    } for name in K.KERNELS]
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

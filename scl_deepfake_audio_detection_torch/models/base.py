@@ -39,8 +39,9 @@ class Linear(nn.Module):
         self.bias.data.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x: torch.Tensor,
-                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        return linear(x, self.weight, self.bias, compute_dtype)
+                compute_dtype: Optional[torch.dtype] = None,
+                fast_bwd: bool = False) -> torch.Tensor:
+        return linear(x, self.weight, self.bias, compute_dtype, fast_bwd)
 
 
 class LayerNorm(nn.Module):

@@ -1,14 +1,16 @@
-"""XLS-R + linear/MLP back-end: the published-best model, at eval.
+"""XLS-R + linear/MLP back-end with SupCon training: the published-best model.
 
 Counterpart of ``LinearNLL`` in
 ``scl_deepfake_audio_detection_tpu/models/linear_nll.py``: SSL frame
-features -> Linear 1024->emb -> ReLU -> 3 x (Linear, LeakyReLU) -> mean-pool
--> Linear emb->2 -> log_softmax.  The loss comes with the training slice.
+features -> Linear 1024->emb -> ReLU -> 3 x (Linear, LeakyReLU, dropout) ->
+mean-pool -> Linear emb->2 -> log_softmax.  Training keeps the pre-ReLU frame
+features and the utterance embedding for the loss: a double-softmax CE plus
+SupCon over frames and over embeddings, selected by ``loss_type``.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -19,7 +21,9 @@ from scl_deepfake_audio_detection_torch.models.base import (
     ModelOutput,
     init_parameters,
 )
-from scl_deepfake_audio_detection_torch.ops.layers import leaky_relu
+from scl_deepfake_audio_detection_torch.ops.layers import dropout, leaky_relu
+from scl_deepfake_audio_detection_torch.ops.losses import nll_on_log_probs
+from scl_deepfake_audio_detection_torch.ops.supcon import seq_similarity, supcon_loss
 from scl_deepfake_audio_detection_torch.utils.device import resolve_device
 
 
@@ -45,7 +49,6 @@ class LinearNLL(nn.Module):
         ssl = ssl or X.XLSRConfig.xlsr_300m()
         self.emb_dim, self.num_classes = emb_dim, num_classes
         self.dropout, self.leaky_slope = dropout, leaky_slope
-        # training-only settings, carried for config parity
         self.flag_fix_ssl, self.contra_mode = flag_fix_ssl, contra_mode
         self.loss_type, self.temperature = loss_type, temperature
         with torch.device(resolve_device(device)):
@@ -69,20 +72,54 @@ class LinearNLL(nn.Module):
         device = self.ll.weight.device
         return init_parameters(self, torch.Generator(device=device).manual_seed(seed))
 
-    def apply(self, wav: torch.Tensor, train: bool = False) -> ModelOutput:
-        """wav [N, T_samples] -> ModelOutput (eval only)."""
-        if train:
-            raise NotImplementedError("LinearNLL training not ported yet")
+    def apply(self, wav: torch.Tensor, train: bool = False,
+              generator: Optional[torch.Generator] = None,
+              dropout_masks: Optional[Sequence[torch.Tensor]] = None) -> ModelOutput:
+        """wav [N, T_samples] -> ModelOutput (log-probs, pre-ReLU frame
+        features, embedding and fp32 logits).
+
+        In training the head's dropout draws from ``generator``, or takes
+        one boolean keep-mask per frame-MLP layer from ``dropout_masks``;
+        with neither it draws nothing (as the JAX package without a key).
+        ``flag_fix_ssl`` runs the SSL frontend without dropout and without
+        gradient (the reference's ``no_grad`` branch)."""
         cdtype = self.ssl.compute_dtype
-        feats_ssl = self.ssl.extract_features(wav)
+        if self.flag_fix_ssl:
+            with torch.no_grad():
+                feats_ssl = self.ssl.extract_features(wav)
+        else:
+            feats_ssl = self.ssl.extract_features(wav, train=train, generator=generator)
         x = self.ll(feats_ssl, cdtype)  # [N, T, emb] fp32
-        feats = x  # pre-ReLU frame features
+        feats = x  # pre-ReLU frame features feed SupCon
         x = torch.relu(x)
-        for lin in self.backend.frame:
+        draws = train and (generator is not None or dropout_masks is not None)
+        for i, lin in enumerate(self.backend.frame):
             x = leaky_relu(lin(x, cdtype), self.leaky_slope)
+            mask = None if dropout_masks is None else dropout_masks[i]
+            x = dropout(x, self.dropout, draws, generator, mask)
         emb = x.mean(dim=1)
         logits = self.backend.out(emb, cdtype).float()
         log_probs = torch.log_softmax(logits, dim=-1)
         return ModelOutput(log_probs=log_probs, feats=feats, emb=emb, logits=logits)
 
     forward = apply
+
+    def loss(self, out: ModelOutput, labels: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Named loss terms selected by ``loss_type`` (1: CE + both SupCons;
+        2: CE + frames; 3: CE + embeddings; 4: CE; 5: both SupCons), each
+        divided by N, the views in the group.  L_CE is the double-softmax CE
+        on the log-probs."""
+        n = out.log_probs.shape[0]
+        labels = labels.reshape(-1).long()
+        terms: Dict[str, torch.Tensor] = {}
+        sup = dict(labels=labels, sim_metric=seq_similarity,
+                   temperature=self.temperature, contra_mode=self.contra_mode)
+        if self.loss_type in (1, 2, 3, 4):
+            terms["L_CE"] = nll_on_log_probs(out.log_probs, labels) / n
+        if self.loss_type in (1, 2, 5):
+            terms["L_CF1"] = supcon_loss(out.feats[:, None].float(), **sup) / n
+        if self.loss_type in (1, 3, 5):
+            terms["L_CF2"] = supcon_loss(out.emb[:, None, :, None].float(), **sup) / n
+        if not terms:
+            raise ValueError(f"unknown loss_type: {self.loss_type}")
+        return terms

@@ -1,4 +1,4 @@
-"""Carry a JAX parameter tree across to a port model.
+"""Carry a JAX parameter tree across to a port model, and back.
 
 The JAX package stores parameters as a nested dict of numpy arrays
 (``train/checkpoint.load``): linear ``w`` as [in, out], conv ``w`` as
@@ -7,7 +7,8 @@ layers stacked as [L, ...] leaves under ``ssl/encoder/layers``.  The port's
 module tree carries the same names, so the map is per leaf: ``w`` ->
 ``weight`` (transposed to torch layout), ``scale`` -> ``weight``, ``b`` and
 ``bias`` -> ``bias``, and the stacked leaves split into
-``encoder.layers.<i>``.
+``encoder.layers.<i>``.  ``to_jax`` is the inverse, so the JAX package can
+read a checkpoint the port trained.
 """
 
 from __future__ import annotations
@@ -18,7 +19,9 @@ import numpy as np
 import torch
 from torch import nn
 
-_STACKED = ("ssl", "encoder", "layers")
+from scl_deepfake_audio_detection_torch.models.base import Conv1d, LayerNorm, Linear
+
+_STACKED = ("encoder", "layers")  # the XLS-R layer stack, under "ssl" in a full model
 _LEAF_NAMES = {"w": "weight", "scale": "weight", "b": "bias", "bias": "bias"}
 
 
@@ -31,6 +34,14 @@ def _leaves(tree, path=()) -> Iterator[Tuple[tuple, np.ndarray]]:
             yield from _leaves(v, path + (str(i),))
     else:
         yield path, np.asarray(tree)
+
+
+def _stack_end(path: tuple) -> int:
+    """Length of the stacked-layers prefix of ``path`` (0 if none)."""
+    for i in range(len(path) - 1):
+        if path[i:i + 2] == _STACKED and path[:i] in ((), ("ssl",)):
+            return i + 2
+    return 0
 
 
 def _torch_leaf(path: tuple, arr: np.ndarray) -> Tuple[str, torch.Tensor]:
@@ -51,9 +62,10 @@ def from_jax(tree, model: nn.Module) -> Dict[str, torch.Tensor]:
     a shape that does not match the model."""
     out: Dict[str, torch.Tensor] = {}
     for path, arr in _leaves(tree):
-        if path[:3] == _STACKED:
+        n = _stack_end(path)
+        if n:
             for i in range(arr.shape[0]):
-                key, t = _torch_leaf(path[:3] + (str(i),) + path[3:], arr[i])
+                key, t = _torch_leaf(path[:n] + (str(i),) + path[n:], arr[i])
                 out[key] = t
         else:
             key, t = _torch_leaf(path, arr)
@@ -76,3 +88,34 @@ def load_jax_params(model: nn.Module, tree) -> nn.Module:
     """Copy a JAX parameter tree into ``model`` (keeps its device and dtypes)."""
     model.load_state_dict(from_jax(tree, model))
     return model
+
+
+def to_jax(model: nn.Module):
+    """The model's parameters as a JAX parameter tree of fp32 numpy arrays:
+    linear ``w`` [in, out], conv ``w`` [K, Cin/groups, Cout], layer norm
+    ``scale``/``bias``, the encoder layers stacked into [L, ...] leaves."""
+    from scl_deepfake_audio_detection_torch.train.checkpoint import _unflatten_dicts
+
+    flat: Dict[tuple, np.ndarray] = {}
+    stacked: Dict[tuple, Dict[int, np.ndarray]] = {}
+    for prefix, m in model.named_modules():
+        if not isinstance(m, (Linear, Conv1d, LayerNorm)):
+            continue
+        norm = isinstance(m, LayerNorm)
+        for attr, leaf in (("weight", "scale" if norm else "w"),
+                           ("bias", "bias" if norm else "b")):
+            t = getattr(m, attr)
+            if t is None:
+                continue
+            arr = t.detach().float().cpu().numpy()
+            if leaf == "w":
+                arr = arr.T if arr.ndim == 2 else arr.transpose(2, 1, 0)
+            path = tuple(prefix.split(".")) + (leaf,)
+            n = _stack_end(path)
+            if n:
+                stacked.setdefault(path[:n] + path[n + 1:], {})[int(path[n])] = arr
+            else:
+                flat[path] = np.ascontiguousarray(arr)
+    for path, per in stacked.items():
+        flat[path] = np.stack([per[i] for i in range(len(per))])
+    return _unflatten_dicts({"//".join(p): a for p, a in flat.items()})

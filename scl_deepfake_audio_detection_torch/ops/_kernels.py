@@ -1,11 +1,12 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-Each ``csrc/<name>.cu`` has a plain C entry point.  At first use it is
-compiled by ``nvcc`` for ``sm_90a`` into a shared library under
-``_build/`` (listed in ``.gitignore``) and loaded with ``ctypes``; nothing
-is compiled at import, so the CPU tests import this module without
-``nvcc``.  The library name carries a hash of the source and the flags,
-so an edited source is rebuilt and a stale library is never loaded.
+Each kernel is a plain C entry point in a ``csrc/*.cu`` source
+(``SOURCES``).  At first use each source is compiled by ``nvcc`` for
+``sm_90a`` into a shared library under ``_build/`` (listed in
+``.gitignore``) and loaded with ``ctypes``; nothing is compiled at import,
+so the CPU tests import this module without ``nvcc``.  The library name
+carries a hash of the source and the flags, so an edited source is rebuilt
+and a stale library is never loaded.
 
 Every wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel
 and nowhere else, so a run can show which kernels its path went through.
@@ -27,14 +28,27 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("flash_attn_fwd",)
+# kernel -> the source that holds its entry point
+SOURCES = {
+    "flash_attn_fwd": "flash_attn_fwd.cu",
+    "flash_attn_bwd_dq": "flash_attn_bwd.cu",
+    "flash_attn_bwd_dkv": "flash_attn_bwd.cu",
+}
+KERNELS = tuple(SOURCES)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# pointers, then (bh, t, d, kv_len, dtype), then the stream
+ARGTYPES = {
+    "flash_attn_fwd": [_P] * 5 + [_I] * 5 + [_P],
+    "flash_attn_bwd_dq": [_P] * 7 + [_I] * 5 + [_P],
+    "flash_attn_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P],
+}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
-_LIBS: Dict[str, ctypes.CDLL] = {}
+_LIBS: Dict[str, ctypes._CFuncPtr] = {}
 
 
 def reset_launches() -> None:
@@ -54,56 +68,57 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
+    """The shared library that holds kernel ``name`` (one per source)."""
+    src = CSRC / SOURCES[name]
     digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{digest}.so"
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 
 def build(names=KERNELS) -> Dict[str, dict]:
-    """Compile every named kernel that is not built yet, one ``nvcc`` each,
-    all started together.  Returns ``{name: {"path", "seconds", "log"}}``;
-    ``log`` holds the compiler's ``-Xptxas -v`` report (registers, shared
-    memory, spills).  Raises if a compile fails."""
+    """Compile the source of every named kernel that is not built yet, one
+    ``nvcc`` per source, all started together.  Returns ``{name: {"path",
+    "seconds", "log"}}``; ``log`` holds the compiler's ``-Xptxas -v`` report
+    (registers, shared memory, spills) of the kernel's source.  Raises if a
+    compile fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
     procs = {}
     for name in names:
         so = _library_path(name)
-        if so.exists():
+        if so.exists() or so in procs:
             continue
         tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (so, tmp, subprocess.Popen(
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        procs[so] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    for so, (tmp, proc) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {so.stem}:\n{log}")
+        os.replace(tmp, so)  # atomic: a concurrent process never loads half a file
+        so.with_suffix(".log").write_text(log)
+    seconds = time.perf_counter() - t0
     out = {}
     for name in names:
         so = _library_path(name)
-        log = ""
-        if name in procs:
-            _, tmp, proc = procs[name]
-            log, _ = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
-            os.replace(tmp, so)  # atomic: a concurrent process never loads half a file
-            so.with_suffix(".log").write_text(log)
-        elif so.with_suffix(".log").exists():
-            log = so.with_suffix(".log").read_text()
-        out[name] = {"path": str(so), "seconds": time.perf_counter() - t0, "log": log}
+        log = so.with_suffix(".log")
+        out[name] = {"path": str(so), "seconds": seconds,
+                     "log": log.read_text() if log.exists() else ""}
     return out
 
 
-def _lib(name: str) -> ctypes.CDLL:
-    lib = _LIBS.get(name)
-    if lib is None:
+def _fn(name: str):
+    """The C entry point of kernel ``name``, its source built and loaded at
+    first use."""
+    fn = _LIBS.get(name)
+    if fn is None:
         build((name,))
-        lib = ctypes.CDLL(str(_library_path(name)))
-        fn = getattr(lib, name)
+        fn = getattr(ctypes.CDLL(str(_library_path(name))), name)
         fn.restype = ctypes.c_int
-        if name == "flash_attn_fwd":
-            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        _LIBS[name] = lib
-    return lib
+        fn.argtypes = ARGTYPES[name]
+        _LIBS[name] = fn
+    return fn
 
 
 def _check(err: int, name: str) -> None:
@@ -113,7 +128,7 @@ def _check(err: int, name: str) -> None:
 
 def check_flash_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        kv_len: Optional[int]) -> int:
-    """Raise on what the flash kernel does not take; return the effective
+    """Raise on what the flash kernels do not take; return the effective
     ``kv_len``.  Device-agnostic, so the CPU path checks the same layout."""
     if q.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"flash attention takes fp32 or bf16, got {q.dtype}")
@@ -136,6 +151,19 @@ def check_flash_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return kv
 
 
+def _check_cuda(name: str, *xs: torch.Tensor) -> None:
+    if not all(x.is_cuda for x in xs):
+        raise ValueError(f"{name} takes CUDA tensors")
+    if any(x.device != xs[0].device for x in xs):
+        raise ValueError(f"{name}: all inputs must lie on one device")
+    if any(x.data_ptr() % 16 for x in xs):
+        raise ValueError(f"{name}: inputs must start on a 16-byte boundary")
+
+
+def _dtype_code(q: torch.Tensor) -> int:
+    return 0 if q.dtype == torch.float32 else 1
+
+
 def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    kv_len: Optional[int] = None):
     """Launch the Hopper flash-attention forward on CUDA tensors.
@@ -143,22 +171,64 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v: [B, H, T, D] contiguous, one dtype (bf16 or fp32), q already
     scaled by 1/sqrt(D).  Keys at or beyond ``kv_len`` are masked.
     Returns (O [B, H, T, D] in q's dtype, LSE [B, H, T] fp32)."""
-    if not (q.is_cuda and k.is_cuda and v.is_cuda):
-        raise ValueError("flash_attn_fwd takes CUDA tensors")
-    if not (q.device == k.device == v.device):
-        raise ValueError("q, k and v must lie on one device")
+    _check_cuda("flash_attn_fwd", q, k, v)
     kv = check_flash_inputs(q, k, v, kv_len)
-    if any(x.data_ptr() % 16 for x in (q, k, v)):
-        raise ValueError("q, k and v must start on a 16-byte boundary")
     b, h, t, d = q.shape
-    fn = _lib("flash_attn_fwd").flash_attn_fwd
+    fn = _fn("flash_attn_fwd")
     with torch.cuda.device(q.device):
         o = torch.empty_like(q)
         lse = torch.empty((b, h, t), device=q.device, dtype=torch.float32)
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 lse.data_ptr(), b * h, t, d, kv,
-                 0 if q.dtype == torch.float32 else 1, stream)
+                 lse.data_ptr(), b * h, t, d, kv, _dtype_code(q), stream)
     _check(err, "flash_attn_fwd")
     LAUNCHES["flash_attn_fwd"] += 1
     return o, lse
+
+
+def _check_bwd(name, q, k, v, do, lse, delta, kv_len) -> int:
+    _check_cuda(name, q, k, v, do, lse, delta)
+    kv = check_flash_inputs(q, k, v, kv_len)
+    if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
+        raise ValueError(f"{name}: dO must be contiguous with q's shape and dtype")
+    for x in (lse, delta):
+        if x.shape != q.shape[:3] or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{name}: LSE and D must be contiguous fp32 [B, H, T]")
+    return kv
+
+
+def flash_attn_bwd_dq(q, k, v, do, lse, delta, kv_len: Optional[int] = None):
+    """Launch the Hopper dq kernel on CUDA tensors: q, k, v, dO [B, H, T, D]
+    in one dtype, LSE (the forward's) and D = rowsum(dO * O) fp32 [B, H, T].
+    Returns dq in q's dtype."""
+    kv = _check_bwd("flash_attn_bwd_dq", q, k, v, do, lse, delta, kv_len)
+    b, h, t, d = q.shape
+    fn = _fn("flash_attn_bwd_dq")
+    with torch.cuda.device(q.device):
+        dq = torch.empty_like(q)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h, t, d, kv,
+                 _dtype_code(q), stream)
+    _check(err, "flash_attn_bwd_dq")
+    LAUNCHES["flash_attn_bwd_dq"] += 1
+    return dq
+
+
+def flash_attn_bwd_dkv(q, k, v, do, lse, delta, kv_len: Optional[int] = None):
+    """Launch the Hopper dk/dv kernel on CUDA tensors (inputs as
+    ``flash_attn_bwd_dq``).  Returns (dk, dv) in k's dtype; rows at keys
+    >= ``kv_len`` are exactly 0."""
+    kv = _check_bwd("flash_attn_bwd_dkv", q, k, v, do, lse, delta, kv_len)
+    b, h, t, d = q.shape
+    fn = _fn("flash_attn_bwd_dkv")
+    with torch.cuda.device(q.device):
+        dk = torch.empty_like(k)
+        dv = torch.empty_like(v)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                 lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 b * h, t, d, kv, _dtype_code(q), stream)
+    _check(err, "flash_attn_bwd_dkv")
+    LAUNCHES["flash_attn_bwd_dkv"] += 1
+    return dk, dv

@@ -6,7 +6,8 @@ Activations are [B, T, C].  Weights are in torch layout: linear
 the JAX [in, out] and [K, Cin/groups, Cout] leaves once, at load).
 
 - ``linear`` casts x and w to the compute dtype, accumulates in fp32,
-  returns fp32 and adds the bias in fp32;
+  returns fp32 and adds the bias in fp32; its backward is explicit
+  (``_Matmul``), with the JAX package's plain and fast rules;
 - ``layer_norm`` computes in fp32 and returns the input dtype;
 - ``conv1d`` returns the operand dtype;
 - ``gelu`` is exact (erf) unless ``approximate`` selects the tanh form.
@@ -34,11 +35,19 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.01) -> torch.Tensor:
     return F.leaky_relu(x, slope)
 
 
-def dropout(x: torch.Tensor, rate: float, train: bool = False) -> torch.Tensor:
-    """Identity at eval.  Training dropout comes with the training slice."""
-    if train and rate > 0.0:
-        raise NotImplementedError("dropout in training not ported yet")
-    return x
+def dropout(x: torch.Tensor, rate: float, train: bool = False,
+            generator: Optional[torch.Generator] = None,
+            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Identity at eval or rate 0.  In training, a Bernoulli keep-mask at
+    1 - rate drawn from ``generator`` (or the given boolean ``mask``, which
+    lets a test hand in another framework's draws), and x / keep where kept."""
+    if not train or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    if mask is None:
+        u = torch.rand(x.shape, device=x.device, generator=generator)
+        mask = u < keep
+    return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))
 
 
 def _matmul_fp32(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
@@ -50,13 +59,54 @@ def _matmul_fp32(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
     return torch.mm(x.float(), w_t.float())
 
 
+def _matmul_to(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """a @ b with fp32 accumulation, rounded once to ``dtype``.  CUDA runs
+    same-dtype operands as one cuBLAS GEMM (fp32 accumulation inside)."""
+    if a.is_cuda and a.dtype == b.dtype:
+        return torch.mm(a, b).to(dtype)
+    return _matmul_fp32(a, b).to(dtype)
+
+
+class _Matmul(torch.autograd.Function):
+    """y = x @ w^T in fp32 from operands in the compute dtype, with the JAX
+    package's two transpose rules (``ops/layers._matmul`` and
+    ``_matmul_fast_bwd``):
+
+    - plain: the fp32 cotangent against the operands, dX = dy W and
+      dW = dy^T X with fp32 accumulation, each in its operand's dtype;
+    - fast: the cotangent is first cast to the operand dtype, so both
+      transpose GEMMs run on bf16 operands (one extra rounding of dy).
+
+    Both have the same forward; with fp32 operands they are the same."""
+
+    @staticmethod
+    def forward(ctx, x2, w, fast_bwd):
+        ctx.save_for_backward(x2, w)
+        ctx.fast_bwd = fast_bwd
+        return _matmul_fp32(x2, w.t())
+
+    @staticmethod
+    def backward(ctx, dy):
+        x2, w = ctx.saved_tensors
+        if ctx.fast_bwd:
+            dy = dy.to(w.dtype)
+        dx = _matmul_to(dy, w.to(dy.dtype), x2.dtype)
+        dw = _matmul_to(dy.t(), x2.to(dy.dtype), w.dtype)
+        return dx, dw, None
+
+
 def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
-           compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+           compute_dtype: Optional[torch.dtype] = None,
+           fast_bwd: bool = False) -> torch.Tensor:
     """x [..., in], w [out, in] -> fp32 [..., out]."""
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         w = w.to(compute_dtype)
-    y = _matmul_fp32(x.reshape(-1, x.shape[-1]), w.t())
+    x2 = x.reshape(-1, x.shape[-1])
+    if torch.is_grad_enabled() and (x2.requires_grad or w.requires_grad):
+        y = _Matmul.apply(x2, w, fast_bwd)
+    else:  # nothing to differentiate: skip the Function's host cost
+        y = _matmul_fp32(x2, w.t())
     y = y.reshape(*x.shape[:-1], w.shape[0])
     return y if b is None else y + b.float()
 

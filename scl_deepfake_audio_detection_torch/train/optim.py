@@ -1,0 +1,175 @@
+"""Optimizer and learning-rate policy.
+
+Counterpart of ``scl_deepfake_audio_detection_tpu/train/optim.py``: AdamW
+(b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay, which equals optax's
+``adamw``) with the learning rate set once per epoch from the reference's
+``CyclicLR(mode='exp_range')`` in closed form, behind optax's
+``MultiSteps(chain(clip_by_global_norm, adamw))``:
+
+- clipping scales g by min(1, max_norm / ||g||) over all gradients together
+  (optax's rule, not ``torch.nn.utils.clip_grad_norm_``, which divides by
+  ||g|| + 1e-6);
+- with ``grad_accum_steps`` k > 1 the gradients are averaged (Welford, as
+  optax) and the update is applied on every k-th call, none in between.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Iterable, Optional, Tuple
+
+import torch
+
+
+def cyclic_exp_lr(epoch: int, base_lr: float = 1e-8, max_lr: float = 1e-5,
+                  step_size: int = 3, gamma: float = 0.85) -> float:
+    """``torch.optim.lr_scheduler.CyclicLR`` 'exp_range' value at ``epoch``:
+    base + (max - base) * max(0, 1 - |x|) * gamma^epoch over a 2*step_size
+    triangular cycle."""
+    cycle = math.floor(1 + epoch / (2 * step_size))
+    x = abs(epoch / step_size - 2 * cycle + 1)
+    return base_lr + (max_lr - base_lr) * max(0.0, 1.0 - x) * (gamma ** epoch)
+
+
+class Optimizer:
+    """AdamW over named parameters with optax's clipping and accumulation.
+    ``step()`` consumes the gradients in ``p.grad`` and clears them; a
+    parameter without a gradient counts as a zero gradient (optax updates
+    every leaf: its moments decay and weight decay still applies)."""
+
+    def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]],
+                 weight_decay: float = 1e-4, grad_clip_norm: Optional[float] = None,
+                 grad_accum_steps: int = 1):
+        named = [(n, p) for n, p in named_params if p.requires_grad]
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        self.adamw = torch.optim.AdamW(self.params, lr=0.0, betas=(0.9, 0.999),
+                                       eps=1e-8, weight_decay=weight_decay)
+        self.grad_clip_norm = grad_clip_norm
+        self.accum_steps = max(int(grad_accum_steps), 1)
+        self.mini_step = 0
+        self.acc = None  # running mean of the gradients of this cycle
+
+    @property
+    def lr(self) -> float:
+        return self.adamw.param_groups[0]["lr"]
+
+    def zero_grad(self) -> None:
+        for p in self.params:
+            p.grad = None
+
+    def step(self) -> bool:
+        """Apply (or accumulate) the current gradients; True when the
+        parameters were updated."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in self.params]
+        if self.accum_steps > 1:
+            if self.acc is None:
+                self.acc = [torch.zeros_like(g) for g in grads]
+            for a, g in zip(self.acc, grads):
+                a.add_((g - a) / (self.mini_step + 1))
+            self.mini_step += 1
+            if self.mini_step < self.accum_steps:
+                self.zero_grad()
+                return False
+            self.mini_step = 0
+            grads = [a.clone() for a in self.acc]
+            for a in self.acc:
+                a.zero_()
+        if self.grad_clip_norm is not None:
+            grads = clip_by_global_norm(grads, self.grad_clip_norm)
+        for p, g in zip(self.params, grads):
+            p.grad = g
+        self.adamw.step()
+        self.zero_grad()
+        return True
+
+    def state_arrays(self) -> Dict[str, torch.Tensor]:
+        """The moments, the step count and the accumulation state, keyed
+        ``exp_avg//<name>``, ``exp_avg_sq//<name>``, ``step``, ``mini_step``
+        and ``acc//<name>``."""
+        out: Dict[str, torch.Tensor] = {"mini_step": torch.tensor(self.mini_step)}
+        step = 0
+        for n, p in zip(self.names, self.params):
+            st = self.adamw.state.get(p)
+            if st:
+                step = int(st["step"])
+                out[f"exp_avg//{n}"] = st["exp_avg"]
+                out[f"exp_avg_sq//{n}"] = st["exp_avg_sq"]
+        out["step"] = torch.tensor(step)
+        if self.acc is not None:
+            out.update({f"acc//{n}": a for n, a in zip(self.names, self.acc)})
+        return out
+
+    def load_state_arrays(self, arrays: Dict[str, object]) -> None:
+        """Inverse of ``state_arrays`` (numpy or tensors)."""
+        step = int(arrays["step"])
+        self.mini_step = int(arrays.get("mini_step", 0))
+        for n, p in zip(self.names, self.params):
+            if f"exp_avg//{n}" not in arrays:
+                continue
+            self.adamw.state[p] = {
+                "step": torch.tensor(float(step)),
+                "exp_avg": torch.as_tensor(arrays[f"exp_avg//{n}"]).to(p.device, p.dtype),
+                "exp_avg_sq": torch.as_tensor(arrays[f"exp_avg_sq//{n}"]).to(p.device, p.dtype),
+            }
+        if f"acc//{self.names[0]}" in arrays:
+            self.acc = [torch.as_tensor(arrays[f"acc//{n}"]).to(p.device, p.dtype)
+                        for n, p in zip(self.names, self.params)]
+
+
+def clip_by_global_norm(grads, max_norm: float):
+    """optax ``clip_by_global_norm``: g where ||g|| < max_norm, else
+    g / ||g|| * max_norm, with ||g|| over all gradients together.  Stays on
+    the device (no sync)."""
+    norm = torch.linalg.vector_norm(
+        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    keep = norm < max_norm
+    return [torch.where(keep, g, g / norm.to(g.dtype) * max_norm) for g in grads]
+
+
+def make_optimizer(named_params, weight_decay: float = 1e-4,
+                   grad_clip_norm: Optional[float] = None,
+                   grad_accum_steps: int = 1) -> Optimizer:
+    """AdamW at learning rate 0 until ``set_learning_rate``."""
+    return Optimizer(named_params, weight_decay, grad_clip_norm, grad_accum_steps)
+
+
+def set_learning_rate(opt: Optimizer, lr: float) -> Optimizer:
+    for group in opt.adamw.param_groups:
+        group["lr"] = float(lr)
+    return opt
+
+
+class EarlyStop:
+    """Early stopping on a validation metric (reference ``main.py:23-45``):
+    patience 10, delta 0.01, initial best 90.0.  ``mode`` 'max' (accuracy,
+    higher is better) or 'min' (dev EER)."""
+
+    def __init__(self, patience: int = 10, delta: float = 0.01,
+                 init_best: float = 90.0, mode: str = "max"):
+        if mode not in ("max", "min"):
+            raise ValueError(f"mode must be 'max' or 'min', got {mode!r}")
+        self.patience = patience
+        self.delta = delta
+        self.best = init_best
+        self.mode = mode
+        self.counter = 0
+        self.early_stop = False
+
+    def is_better(self, score: float, than: float) -> bool:
+        """Direction-aware strict improvement beyond delta."""
+        if self.mode == "min":
+            return score < than - self.delta
+        return score > than + self.delta
+
+    def __call__(self, score: float) -> bool:
+        """True when ``score`` is a new best (the caller saves)."""
+        if self.is_better(score, self.best):
+            self.best = score
+            self.counter = 0
+            return True
+        self.counter += 1
+        if self.counter >= self.patience:
+            self.early_stop = True
+        return False

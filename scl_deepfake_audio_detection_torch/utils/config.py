@@ -1,16 +1,19 @@
-"""The part of a YAML experiment config that eval scoring reads.
+"""Experiment configuration.
 
-Same schema as the reference configs (``configs/conf-3-linear.yaml``):
-``model:`` names the model and carries its settings, ``data:`` names the
-dataset module, which decides the database layout
-(``data/datasets.layout``).  The ``train:`` and ``rawboost:`` sections
-belong to training and are not read here.
+The part of a YAML experiment config that eval scoring reads, in the schema
+of the reference configs (``configs/conf-3-linear.yaml``): ``model:`` names
+the model and carries its settings, ``data:`` names the dataset module,
+which decides the database layout (``data/datasets.layout``).  The
+``train:`` and ``rawboost:`` sections come with the training CLI.
+
+``TrainConfig`` is the port's copy of the JAX package's, with the same
+fields and defaults; ``train/engine.Engine`` reads it.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional
 
 import yaml
 
@@ -36,6 +39,47 @@ class ModelConfig:
 class DataConfig:
     name: str = "eval_only"
     kwargs: Dict[str, Any] = field(default_factory=dict)
+
+
+@dataclass
+class TrainConfig:
+    """Hyperparameters the reference takes on the CLI (``main.py:226-241``).
+    ``compute_dtype`` and ``remat`` are read by whoever builds the model
+    (the XLS-R config carries them); ``mesh_shape`` beyond one device and
+    ``zero1`` are not ported yet (``Engine`` raises)."""
+
+    batch_size: int = 1  # anchor groups per step (each group is V views)
+    num_epochs: int = 100
+    start_epoch: int = 0
+    min_lr: float = 1e-8
+    max_lr: float = 1e-5
+    weight_decay: float = 1e-4
+    loss: str = "weighted_CCE"  # only used in the output dir tag
+    padding_type: str = "zero"  # 'zero' or 'repeat'
+    seed: int = 1234
+    comment: Optional[str] = None
+    compute_dtype: str = "bfloat16"  # matmul dtype; layer norm and softmax stay fp32
+    remat: bool = True  # recompute encoder layers in the backward
+    mesh_shape: Optional[List[int]] = None  # (data, model); None = one device here
+    loss_scope: str = "group"  # 'group': SupCon per anchor group; 'global': one batch
+    grad_clip_norm: Optional[float] = None  # optax clip_by_global_norm
+    grad_accum_steps: int = 1  # optax MultiSteps
+    zero1: bool = False
+    zero1_min_size: int = 1 << 16
+    check_numerics: bool = False  # per-step host check for non-finite metrics
+    ckpt_every: int = 1  # save last.ckpt every N epochs (plus best and final)
+    async_ckpt: bool = True  # write checkpoints on a background thread
+    early_metric: str = "acc"  # 'acc' (dev accuracy) or 'eer' (dev EER)
+    es_patience: int = 10
+    es_delta: float = 0.01
+
+    def model_tag(self) -> str:
+        """model_{loss}_{epochs}_{bs}_{minlr}[_{comment}] (reference
+        ``main.py:310-313``)."""
+        tag = f"model_{self.loss}_{self.num_epochs}_{self.batch_size}_{self.min_lr}"
+        if self.comment:
+            tag += f"_{self.comment}"
+        return tag
 
 
 @dataclass

@@ -101,23 +101,31 @@ def main() -> int:
           f"{n_att * attn:.3f} ms  {100 * n_att * attn / total:5.1f} % "
           f"(T={t}, [{b}, {h}, {t}, {d}])")
 
+    with torch.inference_mode():
+        device_profile(lambda: score_step(model, wav), 3, card, "fwd")
+    return 0
+
+
+def device_profile(fn, n: int, card: str, unit: str) -> None:
+    """Run ``fn`` once, then ``n`` times under ``torch.profiler``; print the
+    device's busy share of the wall time and the top 12 kernels by device
+    time per ``unit`` (one call of ``fn``)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
-        score_step(model, wav)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(3):
-                score_step(model, wav)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
+        wall_us = (time.perf_counter() - t0) * 1e6
     # one record per kernel run: the profiler can list a kernel twice
     kernels = list({(e.name, e.time_range.start, e.time_range.end): e for e in prof.events()
                     if e.device_type == torch.autograd.DeviceType.CUDA}.values())
     if not kernels:
         print("[profile] torch.profiler recorded no device events")
-        return 0
+        return
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for s, e in spans[1:]:
@@ -129,17 +137,16 @@ def main() -> int:
     busy += cur_e - cur_s
     by_name = {}
     for e in kernels:
-        tot, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (tot + e.time_range.elapsed_us(), n + 1)
+        tot, k = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (tot + e.time_range.elapsed_us(), k + 1)
     ktotal = sum(v[0] for v in by_name.values())
-    print(f"[profile] {card}: 3 forwards, device busy {busy / 1e3:.3f} ms of "
+    print(f"[profile] {card}: {n} x {unit}, device busy {busy / 1e3:.3f} ms of "
           f"{wall_us / 1e3:.3f} ms wall ({100 * busy / wall_us:.1f} %), "
           f"{len(kernels)} kernel launches, kernel time summed {ktotal / 1e3:.3f} ms "
           f"(above the busy time where kernels overlap)")
-    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
-        print(f"[profile]   {100 * us / ktotal:5.1f} %  {us / 3e3:8.3f} ms/fwd  "
-              f"{n // 3:4d}/fwd  {name[:90]}")
-    return 0
+    for name, (us, k) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"[profile]   {100 * us / ktotal:5.1f} %  {us / n / 1e3:8.3f} ms/{unit}  "
+              f"{k // n:4d}/{unit}  {name[:90]}")
 
 
 if __name__ == "__main__":

@@ -1,5 +1,5 @@
-"""Tests of the port that need an NVIDIA GPU: the hand-written kernel
-against its plain version, and the eval path on the card.  Marked ``gpu``;
+"""Tests of the port that need an NVIDIA GPU: the hand-written kernels
+against their plain versions, and the eval and training paths on the card.  Marked ``gpu``;
 each decides in its body whether a card is present and skips without one.
 Run them on a machine with a card: ``python -m pytest -m gpu tests/test_torch_*.py``.
 
@@ -61,13 +61,71 @@ def test_flash_kernel_refuses_misaligned_inputs():
 
 
 @pytest.mark.gpu
-def test_flash_forward_refuses_autograd_on_the_card():
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("d", [8, 64, 80, 128])
+@pytest.mark.parametrize("t,kv_len", [(1, None), (199, None), (201, 188), (1024, 1011)])
+def test_backward_kernels_match_plain_versions(dtype, d, t, kv_len):
+    """fp32 to 2e-5 (summation order); bf16 to one bf16 ulp of the largest
+    |gradient| (2^-7 of max) plus 2e-5 for gradients that are zero up to
+    rounding (T = 1), as chip_smoke.TOL_BWD."""
     _need_card()
-    q = torch.zeros(1, 1, 8, 8, device="cuda", requires_grad=True)
-    with pytest.raises(NotImplementedError, match="backward not ported"):
-        PA.flash_attention_forward(q, q, q)
-    with torch.no_grad():
-        PA.flash_attention_forward(q, q, q)
+    g = torch.Generator(device="cuda").manual_seed(t * 1000 + d)
+    shape = (2, 4, t, d)
+    q = (torch.randn(shape, device="cuda", generator=g) * d ** -0.5).to(dtype)
+    k, v, do = (torch.randn(shape, device="cuda", generator=g).to(dtype) for _ in range(3))
+    o, lse = PA.flash_attention_forward(q, k, v, kv_len)
+    delta = (do.float() * o.float()).sum(-1)
+    before = dict(_kernels.LAUNCHES)
+    got = (_kernels.flash_attn_bwd_dq(q, k, v, do, lse, delta, kv_len),
+           *_kernels.flash_attn_bwd_dkv(q, k, v, do, lse, delta, kv_len))
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["flash_attn_bwd_dq"] == before["flash_attn_bwd_dq"] + 1
+    assert _kernels.LAUNCHES["flash_attn_bwd_dkv"] == before["flash_attn_bwd_dkv"] + 1
+    want = (PA.flash_bwd_dq_reference(q, k, v, do, lse, delta, kv_len),
+            *PA.flash_bwd_dkv_reference(q, k, v, do, lse, delta, kv_len))
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        tol = 2e-5 + (0.0 if dtype == torch.float32
+                      else 2.0 ** -7 * b.float().abs().max().item())
+        assert (a.float() - b.float()).abs().max().item() <= tol
+    if kv_len is not None:
+        assert not got[1][:, :, kv_len:].any() and not got[2][:, :, kv_len:].any()
+
+
+@pytest.mark.gpu
+def test_autograd_on_the_card_goes_through_the_three_kernels():
+    _need_card()
+    q = torch.randn(1, 2, 40, 64, device="cuda", requires_grad=True)
+    _kernels.reset_launches()
+    out = PA.self_attention(q, q, q, kv_len=33)
+    out.sum().backward()
+    torch.cuda.synchronize()
+    assert all(n == 1 for n in _kernels.LAUNCHES.values()), _kernels.LAUNCHES
+    x = q.detach().clone().requires_grad_()
+    PA.attention_reference(x, x, x, 33).sum().backward()
+    assert (q.grad - x.grad).abs().max().item() < 1e-4
+
+
+@pytest.mark.gpu
+def test_train_steps_on_the_card_launch_every_kernel():
+    _need_card()
+    from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.train.engine import Engine
+    from scl_deepfake_audio_detection_torch.utils.config import TrainConfig
+
+    ssl = XLSRConfig.tiny(compute_dtype="bfloat16", remat=True, remat_policy="attn")
+    eng = Engine(LinearNLL(ssl=ssl, emb_dim=16, device="cuda"), TrainConfig())
+    eng.init_state()
+    rng = np.random.default_rng(0)
+    labels = np.tile(np.array([1.0] * 5 + [0.0] * 6, np.float32), (2, 1))
+    batches = [{"wav": (0.1 * rng.normal(size=(2, 11, 8000))).astype(np.float32),
+                "labels": labels} for _ in range(2)]
+    _kernels.reset_launches()
+    metrics = eng.run_epoch(batches)
+    assert all(np.isfinite(v) for v in metrics.values())
+    assert _kernels.LAUNCHES == {"flash_attn_fwd": 8, "flash_attn_bwd_dq": 4,
+                                 "flash_attn_bwd_dkv": 4}
 
 
 @pytest.mark.gpu

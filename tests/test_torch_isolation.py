@@ -1,6 +1,6 @@
 """The port stands alone: no module of
 ``scl_deepfake_audio_detection_torch``, and neither ``chip_smoke.py`` nor
-``scripts/profile_torch_eval.py``, pulls in ``jax`` or the JAX package, and
+the ``scripts/profile_torch_*.py``, pulls in ``jax`` or the JAX package, and
 importing compiles nothing."""
 
 import ast
@@ -66,7 +66,8 @@ def _imported_roots(path):
     return roots
 
 
-@pytest.mark.parametrize("rel", ["chip_smoke.py", "scripts/profile_torch_eval.py"] + sorted(
+@pytest.mark.parametrize("rel", ["chip_smoke.py", "scripts/profile_torch_eval.py",
+                                 "scripts/profile_torch_train.py"] + sorted(
     os.path.relpath(os.path.join(d, f), REPO)
     for d, _, fs in os.walk(os.path.join(REPO, "scl_deepfake_audio_detection_torch"))
     for f in fs if f.endswith(".py")))

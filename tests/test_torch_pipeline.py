@@ -149,9 +149,12 @@ def test_seeded_init_is_reproducible_and_seed_dependent():
 
 
 def test_training_entry_raises_not_ported():
-    model = LinearNLL(ssl=XLSRConfig.tiny(), emb_dim=16, device="cpu")
+    """Training is ported; a training option that is not raises."""
     with pytest.raises(NotImplementedError):
-        model.apply(torch.zeros(1, 4000), train=True)
+        LinearNLL(ssl=XLSRConfig.tiny(remat=True, remat_policy="dots"), emb_dim=16,
+                  device="cpu")
+    model = LinearNLL(ssl=XLSRConfig.tiny(), emb_dim=16, device="cpu")
+    assert model.apply(torch.zeros(1, 4000), train=True).log_probs.requires_grad
 
 
 # ------------------------------------------------------------------ the gate
