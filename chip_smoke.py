@@ -27,15 +27,18 @@ Phases, each of which fails the script with a non-zero exit:
    impl='reference'; then ``Engine.fit`` of the conf-3 model (bf16, remat
    'attn') for one epoch of three [2, 11, 64000] steps and one dev batch,
    with every metric finite and the launch counts the remat policy implies;
-6. times: CUDA-event times of each kernel at its main-path shape (the
-   forward at [16, 16, 201, 64], the backward kernels at [22, 16, 199, 64]
-   bf16), of its plain version and of the PyTorch yardstick
-   (``F.scaled_dot_product_attention``, its backward for the backward
-   kernels; the port never calls it), each kernel's bound, eval utt/s, ms
-   per train step and peak memory.
+6. times: CUDA-event times of each kernel at the training shape [22, 16,
+   199, 64] bf16 (the forward also at the eval shape [16, 16, 201, 64]), of
+   its plain version and of the PyTorch yardstick
+   (``F.scaled_dot_product_attention`` pinned to its flash backend and
+   replayed from a CUDA graph, best of two; its backward for the backward
+   kernels; the port never calls it),
+   each kernel's bound, eval utt/s, ms per train step and peak memory.
 
-The line before the last is a JSON object with one entry per kernel, the
-line before it the card's name and power limit, and the last line
+The JSON object with one entry per kernel comes two lines before the last
+(launches counted on the training path, with each path's counts under
+``launches_by_path``; times at the training shape, the forward's eval-shape
+times under ``eval``), then the card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 
@@ -117,6 +120,22 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 50) -> float:
+    """CUDA-event time of ``fn`` captured once in a CUDA graph and replayed:
+    the device's time without the host's dispatch, which at these shapes
+    outlasts the library's kernels and varies with the host's load."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters)
 
 
 def golden_wavs(t: int = 16000):
@@ -255,16 +274,17 @@ def phase_main_path(K, tmp):
     rc = cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = K.LAUNCHES["flash_attn_fwd"]
+    launches = dict(K.LAUNCHES)
     if rc != 0:
         raise AssertionError(f"--eval exited {rc}")
     forwards = math.ceil(n_utts / batch)
     layers = XLSRConfig.xlsr_300m().encoder_layers
+    want = {name: 0 for name in K.KERNELS}
+    want["flash_attn_fwd"] = layers * forwards
     print(f"[main] --eval scored {n_utts} utts in {wall:.2f}s (CLI wall clock "
           f"incl. model build), kernel launches {launches} for {forwards} forwards")
-    if launches != layers * forwards:
-        raise AssertionError(f"kernel launched {launches} times, expected "
-                             f"{layers} x {forwards}")
+    if launches != want:
+        raise AssertionError(f"kernels launched {launches}, expected {want}")
     rows = read_scores(out)
     lp = np.array([rows[u] for u in utts], np.float64)
     lse = np.logaddexp(lp[:, 0], lp[:, 1])
@@ -293,44 +313,53 @@ def phase_main_path(K, tmp):
     return launches
 
 
-def phase_times(K, A, card):
+def _fwd_entry(K, A, shape, card, g):
+    """The forward kernel at ``shape`` bf16 against its plain version and
+    the sdpa yardstick (pinned to its flash backend), and its bound."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
+    q = (torch.randn(shape, device="cuda", generator=g) / 8).bfloat16()
+    k = torch.randn(shape, device="cuda", generator=g).bfloat16()
+    v = torch.randn(shape, device="cuda", generator=g).bfloat16()
+    o, lse = K.flash_attn_fwd(q, k, v)
+    ro, rlse = A.flash_attention_forward_reference(q, k, v)
+    err = (o.float() - ro.float()).abs().max().item()
+    err_lse = (lse - rlse).abs().max().item()
+    tol = TOL[torch.bfloat16]
+    print(f"[kernel] flash_attn_fwd at {list(shape)} bf16: O err {err:.3e} "
+          f"(tol {tol['o']:.0e})  LSE err {err_lse:.3e} (tol {tol['lse']:.0e})")
+    if err > tol["o"] or err_lse > tol["lse"]:
+        raise AssertionError(f"kernel disagrees with its plain version at {list(shape)}")
+    plain1 = cuda_ms(lambda: A.flash_attention_forward_reference(q, k, v))
+    kern1 = cuda_ms(lambda: K.flash_attn_fwd(q, k, v))
+    kern2 = cuda_ms(lambda: K.flash_attn_fwd(q, k, v))
+    plain2 = cuda_ms(lambda: A.flash_attention_forward_reference(q, k, v))
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        sdpa = lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)  # noqa: E731
+        eager = cuda_ms(sdpa)
+        lib = min(graph_ms(sdpa) for _ in range(2))
+    b, h, t, d = shape
+    nbytes = 4 * q.numel() * q.element_size() + b * h * t * 4  # q, k, v, O + LSE
+    bound, by, detail = _bound(nbytes, 4 * b * h * t * t * d)
+    print(f"[times] {card}: flash_attn_fwd {list(shape)} bf16: kernel "
+          f"{kern1:.4f}/{kern2:.4f} ms, plain {plain1:.4f}/{plain2:.4f} ms, "
+          f"sdpa (flash backend, graphed, best of 2) {lib:.4f} ms (eager {eager:.4f} ms), "
+          f"bound {bound:.4f} ms ({detail})")
+    return {"shape": list(shape), "max_abs_err": err, "ms": min(kern1, kern2),
+            "plain_ms": min(plain1, plain2), "bound_ms": bound, "bound_by": by,
+            "library_ms": lib}
+
+
+def phase_times(K, A, card):
+    """The forward kernel at the eval shape, then eval throughput."""
     from scl_deepfake_audio_detection_torch.models.base import cast_matmul_params
     from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
     from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
     from scl_deepfake_audio_detection_torch.train.engine import score_step
 
     g = torch.Generator(device="cuda").manual_seed(1)
-    q = (torch.randn(MAIN_SHAPE, device="cuda", generator=g) / 8).bfloat16()
-    k = torch.randn(MAIN_SHAPE, device="cuda", generator=g).bfloat16()
-    v = torch.randn(MAIN_SHAPE, device="cuda", generator=g).bfloat16()
-    o, lse = K.flash_attn_fwd(q, k, v)
-    ro, rlse = A.flash_attention_forward_reference(q, k, v)
-    err = (o.float() - ro.float()).abs().max().item()
-    err_lse = (lse - rlse).abs().max().item()
-    tol = TOL[torch.bfloat16]
-    print(f"[kernel] main-path shape {list(MAIN_SHAPE)} bf16: O err {err:.3e} "
-          f"(tol {tol['o']:.0e})  LSE err {err_lse:.3e} (tol {tol['lse']:.0e})")
-    if err > tol["o"] or err_lse > tol["lse"]:
-        raise AssertionError("kernel disagrees with its plain version at the "
-                             "main-path shape")
-    plain1 = cuda_ms(lambda: A.flash_attention_forward_reference(q, k, v))
-    kern1 = cuda_ms(lambda: K.flash_attn_fwd(q, k, v))
-    kern2 = cuda_ms(lambda: K.flash_attn_fwd(q, k, v))
-    plain2 = cuda_ms(lambda: A.flash_attention_forward_reference(q, k, v))
-    lib = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0))
-    b, h, t, d = MAIN_SHAPE
-    nbytes = 4 * q.numel() * q.element_size() + b * h * t * 4  # q, k, v, O + LSE
-    flops = 4 * b * h * t * t * d
-    bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
-    kern_ms, plain_ms = min(kern1, kern2), min(plain1, plain2)
-    print(f"[times] {card}: flash_attn_fwd {list(MAIN_SHAPE)} bf16: kernel "
-          f"{kern1:.4f}/{kern2:.4f} ms, plain {plain1:.4f}/{plain2:.4f} ms, "
-          f"sdpa {lib:.4f} ms, bound {max(bytes_ms, flops_ms):.4f} ms "
-          f"({nbytes / 1e6:.2f} MB -> {bytes_ms:.4f} ms, {flops / 1e9:.3f} GFLOP "
-          f"-> {flops_ms:.4f} ms)")
-
+    entry = _fwd_entry(K, A, MAIN_SHAPE, card, g)
     model = LinearNLL(ssl=XLSRConfig.xlsr_300m(compute_dtype="bfloat16"),
                       device="cuda", seed=0)
     cast_matmul_params(model.eval(), torch.bfloat16)
@@ -349,10 +378,7 @@ def phase_times(K, A, card):
     print(f"[times] {card}: eval [16, 64600] bf16 score_step, batch on the card: "
           f"{16 * iters / dt:.2f} utt/s ({dt / iters * 1e3:.2f} ms/forward), "
           f"peak memory {peak / 2**30:.3f} GiB")
-    return {"max_abs_err": err, "ms": kern_ms, "plain_ms": plain_ms,
-            "bound_ms": max(bytes_ms, flops_ms),
-            "bound_by": "bytes" if bytes_ms >= flops_ms else "operations",
-            "library_ms": lib}
+    return entry
 
 
 def _bwd_inputs(shape, dtype, g):
@@ -564,14 +590,15 @@ def phase_train_main_path(K, card):
     if launches != want:
         raise AssertionError("the training main path did not launch the kernels as expected")
 
+    # the steps fit takes: head dropout 0.5 drawn from each step's generator
     placed = [eng.place_batch(b) for b in train]
-    eng.train_step(placed[0])
+    eng.train_step(placed[0], eng.step_generator(1, 0))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     iters = 6
     t0 = time.perf_counter()
     for i in range(iters):
-        eng.train_step(placed[i % len(placed)])
+        eng.train_step(placed[i % len(placed)], eng.step_generator(1, i + 1))
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / iters * 1e3
     peak = torch.cuda.max_memory_allocated()
@@ -592,23 +619,31 @@ def phase_backward_times(K, A, card):
     """Each backward kernel at the train shape against its plain version,
     the sdpa backward and its bound."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     g = torch.Generator(device="cuda").manual_seed(5)
+    out = {"flash_attn_fwd": _fwd_entry(K, A, TRAIN_SHAPE, card, g)}
     q, k, v, do = _bwd_inputs(TRAIN_SHAPE, torch.bfloat16, g)
     err, msg = _bwd_check(K, A, q, k, v, do, None)
     print(f"[backward] train shape {list(TRAIN_SHAPE)} bf16: {msg}")
     o, lse = K.flash_attn_fwd(q, k, v)
     delta = (do.float() * o.float()).sum(-1)
-    fwd_ms = cuda_ms(lambda: K.flash_attn_fwd(q, k, v))
     qr, kr, vr = (a.clone().requires_grad_() for a in (q, k, v))
-    sdpa_f = cuda_ms(lambda: F.scaled_dot_product_attention(qr, kr, vr, scale=1.0))
-    sdpa_fb = cuda_ms(lambda: torch.autograd.grad(
-        F.scaled_dot_product_attention(qr, kr, vr, scale=1.0), (qr, kr, vr), do))
+    # the yardstick pinned to sdpa's flash backend, graphed, best of two runs
+    with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+        def fwd():
+            return F.scaled_dot_product_attention(qr, kr, vr, scale=1.0)
+
+        def fwd_bwd():
+            return torch.autograd.grad(fwd(), (qr, kr, vr), do)
+
+        eager_f, eager_fb = cuda_ms(fwd), cuda_ms(fwd_bwd)
+        sdpa_f = min(graph_ms(fwd) for _ in range(2))
+        sdpa_fb = min(graph_ms(fwd_bwd) for _ in range(2))
     lib = sdpa_fb - sdpa_f
     b, h, t, d = TRAIN_SHAPE
     n = q.numel() * q.element_size()
     stats = 2 * b * h * t * 4  # L and D, fp32
-    out = {}
     for name, kern, plain, nbytes, flops in (
             ("flash_attn_bwd_dq",
              lambda: K.flash_attn_bwd_dq(q, k, v, do, lse, delta),
@@ -623,10 +658,12 @@ def phase_backward_times(K, A, card):
         print(f"[times] {card}: {name} {list(TRAIN_SHAPE)} bf16: kernel {k1:.4f}/{k2:.4f} ms, "
               f"plain {p1:.4f}/{p2:.4f} ms, sdpa backward (dq, dk, dv together) "
               f"{lib:.4f} ms, bound {bound:.4f} ms ({detail})")
-        out[name] = {"max_abs_err": err[name], "ms": min(k1, k2), "plain_ms": min(p1, p2),
+        out[name] = {"shape": list(TRAIN_SHAPE), "max_abs_err": err[name],
+                     "ms": min(k1, k2), "plain_ms": min(p1, p2),
                      "bound_ms": bound, "bound_by": by, "library_ms": lib}
-    print(f"[times] {card}: at the train shape, flash_attn_fwd {fwd_ms:.4f} ms, sdpa "
-          f"forward {sdpa_f:.4f} ms, sdpa forward + backward {sdpa_fb:.4f} ms")
+    print(f"[times] {card}: at the train shape, sdpa (flash backend, graphed, best of 2) "
+          f"forward {sdpa_f:.4f} ms, forward + backward {sdpa_fb:.4f} ms; eager "
+          f"{eager_f:.4f} and {eager_fb:.4f} ms")
     return out
 
 
@@ -653,21 +690,31 @@ def main() -> int:
     phase_golden_train(K)
     with tempfile.TemporaryDirectory() as tmp:
         eval_launches = phase_main_path(K, tmp)
-    fwd_times = phase_times(K, A, card)
+    eval_fwd = phase_times(K, A, card)
     torch.cuda.empty_cache()
     launches = phase_train_main_path(K, card)
     torch.cuda.empty_cache()
-    times = {"flash_attn_fwd": fwd_times, **phase_backward_times(K, A, card)}
+    times = phase_backward_times(K, A, card)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f}s; launches on the "
           f"eval main path {eval_launches}, on the training main path {launches}")
-    kernels = [{
-        "name": name,
-        "route": "cuda",
-        "source": f"scl_deepfake_audio_detection_torch/csrc/{K.SOURCES[name]}",
-        "replaces": REPLACES[name],
-        "launches": launches[name],
-        **times[name],
-    } for name in K.KERNELS]
+    # Each entry's launches and times belong to this slice's main path,
+    # training: counted in the fit run, timed at its shape.  The eval path's
+    # launches sit beside them, and the forward's eval-shape times under "eval".
+    kernels = []
+    for name in K.KERNELS:
+        entry = {
+            "name": name,
+            "route": "cuda",
+            "source": f"scl_deepfake_audio_detection_torch/csrc/{K.SOURCES[name]}",
+            "replaces": REPLACES[name],
+            "path": "train",
+            "launches": launches[name],
+            "launches_by_path": {"eval": eval_launches[name], "train": launches[name]},
+            **times[name],
+        }
+        if name == "flash_attn_fwd":
+            entry["eval"] = {"launches": eval_launches[name], **eval_fwd}
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,7 @@ import torch
 from torch import nn
 
 from scl_deepfake_audio_detection_torch.models.base import Conv1d, LayerNorm, Linear
+from scl_deepfake_audio_detection_torch.utils.tree import SEP, unflatten
 
 _STACKED = ("encoder", "layers")  # the XLS-R layer stack, under "ssl" in a full model
 _LEAF_NAMES = {"w": "weight", "scale": "weight", "b": "bias", "bias": "bias"}
@@ -94,8 +95,6 @@ def to_jax(model: nn.Module):
     """The model's parameters as a JAX parameter tree of fp32 numpy arrays:
     linear ``w`` [in, out], conv ``w`` [K, Cin/groups, Cout], layer norm
     ``scale``/``bias``, the encoder layers stacked into [L, ...] leaves."""
-    from scl_deepfake_audio_detection_torch.train.checkpoint import _unflatten_dicts
-
     flat: Dict[tuple, np.ndarray] = {}
     stacked: Dict[tuple, Dict[int, np.ndarray]] = {}
     for prefix, m in model.named_modules():
@@ -118,4 +117,4 @@ def to_jax(model: nn.Module):
                 flat[path] = np.ascontiguousarray(arr)
     for path, per in stacked.items():
         flat[path] = np.stack([per[i] for i in range(len(per))])
-    return _unflatten_dicts({"//".join(p): a for p, a in flat.items()})
+    return unflatten({SEP.join(p): a for p, a in flat.items()})

@@ -26,22 +26,10 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-_SEP = "//"
+from scl_deepfake_audio_detection_torch.models.params import load_jax_params, to_jax
+from scl_deepfake_audio_detection_torch.utils.tree import flatten, unflatten
+
 _META_KEY = "__scl_meta__"
-
-
-def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
-    """``//`` paths of a nested dict/list tree; list indices as digits."""
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, (list, tuple)):
-        items = enumerate(tree)
-    else:
-        return {prefix: tree}
-    flat: Dict[str, Any] = {}
-    for k, v in items:
-        flat.update(_flatten(v, f"{prefix}{_SEP}{k}" if prefix else str(k)))
-    return flat
 
 
 def _host(x) -> np.ndarray:
@@ -49,31 +37,6 @@ def _host(x) -> np.ndarray:
         x = x.detach()
         return (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
     return np.asarray(x)
-
-
-def _unflatten_dicts(flat: Dict[str, Any]):
-    """Nested dicts from ``//`` paths; integer components become list
-    indices when they run contiguously from 0."""
-    nested: dict = {}
-    for key, v in flat.items():
-        d = nested
-        *parents, last = key.split(_SEP)
-        for k in parents:
-            d = d.setdefault(k, {})
-        d[last] = v
-
-    def listify(node):
-        if not isinstance(node, dict):
-            return node
-        node = {k: listify(v) for k, v in node.items()}
-        keys = list(node)
-        if keys and all(k.isdigit() for k in keys):
-            idx = sorted(int(k) for k in keys)
-            if idx == list(range(len(idx))):
-                return [node[str(i)] for i in idx]
-        return node
-
-    return listify(nested)
 
 
 def _atomic_write(path: str, write) -> None:
@@ -102,7 +65,7 @@ def _write_flat(path: str, flat: Dict[str, np.ndarray],
 def save(path: str, tree, extra: Optional[Dict[str, Any]] = None) -> None:
     """Atomically save a tree of arrays (tensors or numpy) with JSON-able
     ``extra`` metadata."""
-    _write_flat(path, {k: _host(v) for k, v in _flatten(tree).items()}, extra)
+    _write_flat(path, {k: _host(v) for k, v in flatten(tree).items()}, extra)
 
 
 def load(path: str) -> Tuple[Any, Dict[str, Any]]:
@@ -116,7 +79,7 @@ def load(path: str) -> Tuple[Any, Dict[str, Any]]:
     elif os.path.exists(path + ".json"):
         with open(path + ".json") as f:
             extra = json.load(f).get("extra", {})
-    return _unflatten_dicts(flat), extra
+    return unflatten(flat), extra
 
 
 class AsyncWriter:
@@ -158,12 +121,8 @@ def save_train_state(path: str, model: torch.nn.Module, optimizer, epoch: int,
     epoch, the run's seed, the early-stop watermark ``best``, its patience
     counter and which metric it tracks.  The host copy is made here; with a
     ``writer`` the npz write runs on its thread."""
-    from scl_deepfake_audio_detection_torch.models.params import to_jax
-
-    state = {"params": to_jax(model)}
-    if optimizer is not None:
-        state["opt"] = optimizer.state_arrays()
-    flat = {k: _host(v) for k, v in _flatten(state).items()}
+    state = {"params": to_jax(model), "opt": optimizer.state_arrays()}
+    flat = {k: _host(v) for k, v in flatten(state).items()}
     extra = {"epoch": int(epoch), "best": float(best), "es_counter": int(es_counter),
              "es_metric": str(es_metric), "seed": int(seed)}
     if writer is None:
@@ -172,13 +131,10 @@ def save_train_state(path: str, model: torch.nn.Module, optimizer, epoch: int,
         writer.submit(path, flat, extra)
 
 
-def load_train_state(path: str, model: torch.nn.Module, optimizer=None):
-    """Load a train state into ``model`` (and ``optimizer``).  Returns
+def load_train_state(path: str, model: torch.nn.Module, optimizer):
+    """Load a train state into ``model`` and ``optimizer``.  Returns
     (epoch, best, extra)."""
-    from scl_deepfake_audio_detection_torch.models.params import load_jax_params
-
     tree, extra = load(path)
     load_jax_params(model, tree["params"])
-    if optimizer is not None:
-        optimizer.load_state_arrays(_flatten(tree["opt"]))
+    optimizer.load_state_arrays(flatten(tree["opt"]))
     return int(extra["epoch"]), float(extra["best"]), extra

@@ -9,10 +9,10 @@ and takes one AdamW step.  Per-step metrics stay on the device;
 epochs as the reference does (``main.py:397-423``): per-epoch cyclic LR,
 early stop on dev accuracy (or dev EER), checkpoints on a new best.
 
-The engine owns the model's parameters and the optimizer state; the model
-lives on ``device`` (the card unless the caller asks for the CPU).  Dropout
-draws come from a ``torch.Generator`` seeded from (``cfg.seed``, epoch,
-step), so a run is reproducible on one device type.
+The engine owns the model's parameters and the optimizer state, on the
+device the model was built on (the card unless the caller asked for the
+CPU).  Dropout draws come from a ``torch.Generator`` seeded from
+(``cfg.seed``, epoch, step), so a run is reproducible on one device type.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Any, Callable, Dict, Iterable, List, Optional, Union
+from typing import Any, Callable, Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -38,7 +38,6 @@ from scl_deepfake_audio_detection_torch.train.optim import (
     set_learning_rate,
 )
 from scl_deepfake_audio_detection_torch.utils.config import TrainConfig
-from scl_deepfake_audio_detection_torch.utils.device import resolve_device
 
 Batch = Dict[str, Any]
 
@@ -118,8 +117,7 @@ def step_seed(seed: int, epoch: int, step: int) -> int:
 class Engine:
     """Owns the model, its optimizer and the epoch loop."""
 
-    def __init__(self, model: nn.Module, train_cfg: Optional[TrainConfig] = None,
-                 device: Optional[Union[str, torch.device]] = None):
+    def __init__(self, model: nn.Module, train_cfg: Optional[TrainConfig] = None):
         self.cfg = cfg = train_cfg or TrainConfig()
         if cfg.mesh_shape is not None and int(np.prod(cfg.mesh_shape)) != 1:
             raise NotImplementedError(f"mesh_shape={cfg.mesh_shape} not ported yet "
@@ -129,23 +127,20 @@ class Engine:
         if cfg.loss_scope not in ("group", "global"):
             raise ValueError(f"loss_scope must be 'group' or 'global', got {cfg.loss_scope!r}")
         self.model = model
-        self.device = (resolve_device(device) if device is not None
-                       else next(model.parameters()).device)
+        self.device = next(model.parameters()).device
         self.optimizer = None
 
     # ----------------------------------------------------------- state setup
-    def init_state(self, params=None, with_opt: bool = True):
-        """Optionally load a JAX parameter tree (numpy leaves), put the model
-        on the engine's device and make the optimizer (learning rate 0 until
-        ``set_learning_rate``).  ``with_opt=False`` skips the AdamW moments
-        for forward-only use.  Returns (model, optimizer)."""
+    def init_state(self, params=None):
+        """Optionally load a JAX parameter tree (numpy leaves) into the model
+        and make the optimizer (learning rate 0 until ``set_learning_rate``).
+        Returns (model, optimizer)."""
         if params is not None:
             load_jax_params(self.model, params)
-        self.model.to(self.device)
-        self.optimizer = (make_optimizer(
+        self.optimizer = make_optimizer(
             self.model.named_parameters(), self.cfg.weight_decay,
             grad_clip_norm=self.cfg.grad_clip_norm,
-            grad_accum_steps=self.cfg.grad_accum_steps) if with_opt else None)
+            grad_accum_steps=self.cfg.grad_accum_steps)
         return self.model, self.optimizer
 
     def place_batch(self, batch: Batch) -> Batch:
@@ -158,9 +153,11 @@ class Engine:
             step_seed(self.cfg.seed, epoch, step))
 
     # ----------------------------------------------------------------- steps
-    def train_step(self, batch: Batch, generator: Optional[torch.Generator] = None,
+    def train_step(self, batch: Batch, generator: torch.Generator,
                    dropout_masks=None) -> Dict[str, torch.Tensor]:
-        """Forward, backward and one optimizer call on a placed batch.
+        """Forward, backward and one optimizer call on a placed batch.  The
+        dropout draws come from ``generator`` (``step_generator``), as the
+        JAX step's from its key; ``dropout_masks`` replaces the head's draws.
         Returns the step's metrics as device scalars (of the forward before
         the update)."""
         total, metrics, _ = _loss_and_metrics(

@@ -1,0 +1,47 @@
+"""Nested dict/list trees <-> flat ``//``-joined paths, the key scheme of
+the JAX package's checkpoints (``train/checkpoint.py`` there)."""
+
+from __future__ import annotations
+
+from typing import Any, Dict
+
+SEP = "//"
+
+
+def flatten(tree, prefix: str = "") -> Dict[str, Any]:
+    """``//`` paths of a nested dict/list tree; list indices as digits."""
+    if isinstance(tree, dict):
+        items = tree.items()
+    elif isinstance(tree, (list, tuple)):
+        items = enumerate(tree)
+    else:
+        return {prefix: tree}
+    flat: Dict[str, Any] = {}
+    for k, v in items:
+        flat.update(flatten(v, f"{prefix}{SEP}{k}" if prefix else str(k)))
+    return flat
+
+
+def unflatten(flat: Dict[str, Any]):
+    """Nested dicts from ``//`` paths; integer components become list
+    indices when they run contiguously from 0."""
+    nested: dict = {}
+    for key, v in flat.items():
+        d = nested
+        *parents, last = key.split(SEP)
+        for k in parents:
+            d = d.setdefault(k, {})
+        d[last] = v
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        keys = list(node)
+        if keys and all(k.isdigit() for k in keys):
+            idx = sorted(int(k) for k in keys)
+            if idx == list(range(len(idx))):
+                return [node[str(i)] for i in idx]
+        return node
+
+    return listify(nested)

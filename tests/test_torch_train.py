@@ -13,7 +13,9 @@ Tolerances, with their reasons:
   the two frameworks round activations at different points (see
   ``tests/test_torch_xlsr.py``) and the backward carries that on;
 - the port's three remat settings compute the same operations in the same
-  order, so their gradients are held equal bit for bit;
+  order, so their gradients are held equal bit for bit; these runs take
+  one CPU thread, so that the CPU libraries cannot split a reduction
+  differently between them;
 - the key bias of attention adds one constant to every score of a row,
   which the softmax removes: its true gradient is 0 and both frameworks
   give rounding noise, so it is held small against the key weight's
@@ -22,6 +24,7 @@ Tolerances, with their reasons:
 - the golden train-step pin uses the tolerances of
   ``tests/test_golden_pipeline.py``."""
 
+import contextlib
 import json
 import os
 
@@ -47,6 +50,7 @@ from scl_deepfake_audio_detection_torch.train import checkpoint as pckpt
 from scl_deepfake_audio_detection_torch.train import engine as PE
 from scl_deepfake_audio_detection_torch.train.optim import set_learning_rate
 from scl_deepfake_audio_detection_torch.utils.config import TrainConfig
+from scl_deepfake_audio_detection_torch.utils.tree import flatten
 
 torch.set_num_threads(2)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -149,6 +153,18 @@ def _xlsr_grads(params, dtype, remat, policy="attn", train=False, seed=None, **k
     return {n: p.grad.clone() for n, p in model.named_parameters()}, g.numpy()
 
 
+@contextlib.contextmanager
+def _one_thread():
+    """One intra-op thread: a reduction's order then depends on the program
+    alone, not on how the CPU libraries split it across threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def ssl_tree():
     return jax.tree.map(np.asarray, JX.init_xlsr(jax.random.key(3), JX.XLSRConfig.tiny()))
@@ -156,8 +172,9 @@ def ssl_tree():
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_xlsr_gradients_match_jax_and_agree_across_remat(ssl_tree, dtype):
-    grads = {r: _xlsr_grads(ssl_tree, dtype, r is not None, r or "attn")[0]
-             for r in (None, "full", "attn")}
+    with _one_thread():
+        grads = {r: _xlsr_grads(ssl_tree, dtype, r is not None, r or "attn")[0]
+                 for r in (None, "full", "attn")}
     for r in ("full", "attn"):
         for n, a in grads[None].items():
             assert torch.equal(a, grads[r][n]), (r, n)
@@ -187,10 +204,11 @@ def test_dropout_draws_agree_across_remat(ssl_tree):
     """With nonzero rates each block reseeds from its layer's seed, so a
     recomputed block draws the masks of its first run."""
     kw = dict(dropout=0.1, attention_dropout=0.1, activation_dropout=0.1)
-    ref = _xlsr_grads(ssl_tree, "float32", False, train=True, seed=5, **kw)[0]
-    for policy in ("full", "attn"):
-        got = _xlsr_grads(ssl_tree, "float32", True, policy, train=True, seed=5, **kw)[0]
-        assert all(torch.equal(ref[n], got[n]) for n in ref), policy
+    with _one_thread():
+        ref = _xlsr_grads(ssl_tree, "float32", False, train=True, seed=5, **kw)[0]
+        for policy in ("full", "attn"):
+            got = _xlsr_grads(ssl_tree, "float32", True, policy, train=True, seed=5, **kw)[0]
+            assert all(torch.equal(ref[n], got[n]) for n in ref), policy
     other = _xlsr_grads(ssl_tree, "float32", False, train=True, seed=6, **kw)[0]
     assert not all(torch.equal(ref[n], other[n]) for n in ref)
 
@@ -215,8 +233,9 @@ def test_fast_backward_defaults_follow_jax():
 
 
 def test_remat_tail_full_gives_the_same_gradients(ssl_tree):
-    a = _xlsr_grads(ssl_tree, "float32", True, "attn")[0]
-    b = _xlsr_grads(ssl_tree, "float32", True, "attn", remat_tail_full=1)[0]
+    with _one_thread():
+        a = _xlsr_grads(ssl_tree, "float32", True, "attn")[0]
+        b = _xlsr_grads(ssl_tree, "float32", True, "attn", remat_tail_full=1)[0]
     assert all(torch.equal(a[n], b[n]) for n in a)
 
 
@@ -224,7 +243,7 @@ def test_remat_tail_full_gives_the_same_gradients(ssl_tree):
 
 def _port_engine(tree, dropout=0.5, **cfg):
     model = LinearNLL(ssl=PX.XLSRConfig.tiny(), emb_dim=16, dropout=dropout, device="cpu")
-    eng = PE.Engine(model, TrainConfig(**cfg), device="cpu")
+    eng = PE.Engine(model, TrainConfig(**cfg))
     eng.init_state(params=tree)
     return eng
 
@@ -244,8 +263,8 @@ def test_golden_train_step_pin_reproduced(golden_tree):
     eng = _port_engine(golden_tree, max_lr=1e-4)
     t = eng.model.ssl.cfg.num_frames(batch["wav"].shape[-1])
     masks = _jax_head_masks(jax.random.fold_in(jax.random.key(7), 0), 8, t)
-    m = {k: float(v) for k, v in eng.train_step(eng.place_batch(batch),
-                                                dropout_masks=masks).items()}
+    m = {k: float(v) for k, v in eng.train_step(
+        eng.place_batch(batch), eng.step_generator(0, 0), dropout_masks=masks).items()}
     assert m["loss"] == pytest.approx(0.7708058953, abs=2e-4)
     assert m["L_CE"] == pytest.approx(0.1741586030, abs=1e-4)
     assert m["L_CF1"] == pytest.approx(0.3219523132, abs=1e-4)
@@ -268,7 +287,7 @@ def test_three_train_steps_match_the_jax_engine(golden_tree):
     for i, b in enumerate(batches):
         params, buffers, opt, want = jeng.train_step(params, buffers, opt,
                                                      jeng.place_batch(b), jax.random.key(i))
-        got = eng.train_step(eng.place_batch(b))
+        got = eng.train_step(eng.place_batch(b), eng.step_generator(0, i))
         for k in want:
             np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5, atol=1e-5,
                                        err_msg=f"step {i} {k}")
@@ -302,7 +321,7 @@ def test_eval_metrics_match_jax_in_both_loss_scopes(golden_tree, scope):
 
 def test_flag_fix_ssl_trains_only_the_head(golden_tree):
     model = LinearNLL(ssl=PX.XLSRConfig.tiny(), emb_dim=16, flag_fix_ssl=True, device="cpu")
-    eng = PE.Engine(model, TrainConfig(weight_decay=0.0), device="cpu")
+    eng = PE.Engine(model, TrainConfig(weight_decay=0.0))
     eng.init_state(params=golden_tree)
     set_learning_rate(eng.optimizer, 1e-3)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
@@ -317,9 +336,9 @@ def test_engine_refuses_unported_settings():
                     ({"zero1": True}, NotImplementedError),
                     ({"loss_scope": "batch"}, ValueError)):
         with pytest.raises(err):
-            PE.Engine(model, TrainConfig(**kw), device="cpu")
-    PE.Engine(model, TrainConfig(mesh_shape=[1, 1]), device="cpu")
-    eng = PE.Engine(model, TrainConfig(), device="cpu")
+            PE.Engine(model, TrainConfig(**kw))
+    PE.Engine(model, TrainConfig(mesh_shape=[1, 1]))
+    eng = PE.Engine(model, TrainConfig())
     for kw in ({"tensorboard_dir": "tb"}, {"profile_dir": "prof"}):
         with pytest.raises(NotImplementedError):
             eng.fit(list, list, **kw)
@@ -327,7 +346,7 @@ def test_engine_refuses_unported_settings():
 
 def test_step_generators_are_reproducible():
     eng = PE.Engine(LinearNLL(ssl=PX.XLSRConfig.tiny(), emb_dim=4, device="cpu"),
-                    TrainConfig(seed=7), device="cpu")
+                    TrainConfig(seed=7))
     a, b, c = (torch.rand(4, generator=g) for g in (eng.step_generator(1, 2),
                                                     eng.step_generator(1, 2),
                                                     eng.step_generator(2, 1)))
@@ -405,7 +424,7 @@ def test_fit_on_accuracy_without_a_gain_stops_after_patience(golden_tree, tmp_pa
 def test_to_jax_inverts_from_jax(golden_tree):
     model = LinearNLL(ssl=PX.XLSRConfig.tiny(), emb_dim=16, device="cpu")
     back = to_jax(load_jax_params(model, golden_tree))
-    flat_a, flat_b = pckpt._flatten(golden_tree), pckpt._flatten(back)
+    flat_a, flat_b = flatten(golden_tree), flatten(back)
     assert sorted(flat_a) == sorted(flat_b)
     for k in flat_a:
         assert flat_b[k].dtype == np.float32 and np.array_equal(flat_a[k], flat_b[k]), k
