@@ -28,20 +28,31 @@ Phases, each of which fails the script with a non-zero exit:
    'attn') for one epoch of three [2, 11, 64000] steps and one dev batch,
    with every metric finite and the launch counts the remat policy implies;
 6. times: CUDA-event times of each kernel at the training shape [22, 16,
-   199, 64] bf16 (the forward also at the eval shape [16, 16, 201, 64]), of
-   its plain version and of the PyTorch yardstick
-   (``F.scaled_dot_product_attention`` pinned to its flash backend and
-   replayed from a CUDA graph, best of two; its backward for the backward
-   kernels; the port never calls it),
-   each kernel's bound, eval utt/s, ms per train step and peak memory.
+   199, 64] bf16 (the forward also at the eval shape [16, 16, 201, 64]),
+   replayed from a CUDA graph, best of two, with its eager time beside it;
+   of its plain version; and of the PyTorch yardstick
+   (``F.scaled_dot_product_attention`` pinned to its flash backend, timed
+   the same way; its backward for the backward kernels; the port never
+   calls it), each kernel's bound, eval utt/s, ms per train step and peak
+   memory.
+
+``python3 chip_smoke.py --before DIR`` also builds the kernels of another
+checkout of the repo at DIR (an earlier commit, unpacked with ``git
+archive``) and times them on the same inputs, in turns with this tree's
+(before, now, now, before); each entry's ``ms_before`` holds that time, and
+is null without ``--before``.
 
 The JSON object with one entry per kernel comes two lines before the last
 (launches counted on the training path, with each path's counts under
-``launches_by_path``; times at the training shape, the forward's eval-shape
-times under ``eval``), then the card's name and power limit, and the last line
+``launches_by_path``; times at the training shape, ``ms`` = ``graph_ms``,
+with ``eager_ms`` and ``ms_before``; the forward's eval-shape times under
+``eval``), then the card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 
+import argparse
+import concurrent.futures
+import importlib.util
 import json
 import math
 import os
@@ -136,6 +147,35 @@ def graph_ms(fn, iters: int = 50) -> float:
     with torch.cuda.graph(graph):
         fn()
     return cuda_ms(graph.replay, iters)
+
+
+def time_kernel(kern, before=None) -> dict:
+    """The kernel's graphed time (best of two) and eager time; with
+    ``before`` (an earlier build of the same kernel on the same inputs) also
+    its graphed time, measured in turns: before, now, now, before."""
+    b1 = graph_ms(before) if before else None
+    k1, k2 = graph_ms(kern), graph_ms(kern)
+    b2 = graph_ms(before) if before else None
+    ms = min(k1, k2)
+    return {"ms": ms, "graph_ms": ms, "eager_ms": cuda_ms(kern),
+            "ms_before": min(b1, b2) if before else None}
+
+
+def timing_line(times: dict) -> str:
+    before = (f", before {times['ms_before']:.4f} ms" if times["ms_before"] is not None
+              else "")
+    return (f"kernel {times['graph_ms']:.4f} ms graphed (eager {times['eager_ms']:.4f} ms)"
+            f"{before}")
+
+
+def load_before(path: str):
+    """The kernel module of another checkout at ``path``, loaded under its
+    own name; its kernels build into that checkout's ``_build/``."""
+    src = os.path.join(path, "scl_deepfake_audio_detection_torch", "ops", "_kernels.py")
+    spec = importlib.util.spec_from_file_location("before_kernels", src)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def golden_wavs(t: int = 16000):
@@ -313,9 +353,10 @@ def phase_main_path(K, tmp):
     return launches
 
 
-def _fwd_entry(K, A, shape, card, g):
+def _fwd_entry(K, A, shape, card, g, KB=None):
     """The forward kernel at ``shape`` bf16 against its plain version and
-    the sdpa yardstick (pinned to its flash backend), and its bound."""
+    the sdpa yardstick (pinned to its flash backend), and its bound; with
+    ``KB``, the earlier build's kernel too."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
@@ -332,8 +373,8 @@ def _fwd_entry(K, A, shape, card, g):
     if err > tol["o"] or err_lse > tol["lse"]:
         raise AssertionError(f"kernel disagrees with its plain version at {list(shape)}")
     plain1 = cuda_ms(lambda: A.flash_attention_forward_reference(q, k, v))
-    kern1 = cuda_ms(lambda: K.flash_attn_fwd(q, k, v))
-    kern2 = cuda_ms(lambda: K.flash_attn_fwd(q, k, v))
+    times = time_kernel(lambda: K.flash_attn_fwd(q, k, v),
+                        KB and (lambda: KB.flash_attn_fwd(q, k, v)))
     plain2 = cuda_ms(lambda: A.flash_attention_forward_reference(q, k, v))
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
         sdpa = lambda: F.scaled_dot_product_attention(q, k, v, scale=1.0)  # noqa: E731
@@ -342,16 +383,16 @@ def _fwd_entry(K, A, shape, card, g):
     b, h, t, d = shape
     nbytes = 4 * q.numel() * q.element_size() + b * h * t * 4  # q, k, v, O + LSE
     bound, by, detail = _bound(nbytes, 4 * b * h * t * t * d)
-    print(f"[times] {card}: flash_attn_fwd {list(shape)} bf16: kernel "
-          f"{kern1:.4f}/{kern2:.4f} ms, plain {plain1:.4f}/{plain2:.4f} ms, "
+    print(f"[times] {card}: flash_attn_fwd {list(shape)} bf16: {timing_line(times)}, "
+          f"plain {plain1:.4f}/{plain2:.4f} ms, "
           f"sdpa (flash backend, graphed, best of 2) {lib:.4f} ms (eager {eager:.4f} ms), "
           f"bound {bound:.4f} ms ({detail})")
-    return {"shape": list(shape), "max_abs_err": err, "ms": min(kern1, kern2),
+    return {"shape": list(shape), "max_abs_err": err, **times,
             "plain_ms": min(plain1, plain2), "bound_ms": bound, "bound_by": by,
             "library_ms": lib}
 
 
-def phase_times(K, A, card):
+def phase_times(K, A, card, KB=None):
     """The forward kernel at the eval shape, then eval throughput."""
     from scl_deepfake_audio_detection_torch.models.base import cast_matmul_params
     from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
@@ -359,7 +400,7 @@ def phase_times(K, A, card):
     from scl_deepfake_audio_detection_torch.train.engine import score_step
 
     g = torch.Generator(device="cuda").manual_seed(1)
-    entry = _fwd_entry(K, A, MAIN_SHAPE, card, g)
+    entry = _fwd_entry(K, A, MAIN_SHAPE, card, g, KB)
     model = LinearNLL(ssl=XLSRConfig.xlsr_300m(compute_dtype="bfloat16"),
                       device="cuda", seed=0)
     cast_matmul_params(model.eval(), torch.bfloat16)
@@ -615,14 +656,15 @@ def _bound(nbytes, flops):
         f"{nbytes / 1e6:.2f} MB -> {bytes_ms:.4f} ms, {flops / 1e9:.3f} GFLOP -> {flops_ms:.4f} ms"
 
 
-def phase_backward_times(K, A, card):
+def phase_backward_times(K, A, card, KB=None):
     """Each backward kernel at the train shape against its plain version,
-    the sdpa backward and its bound."""
+    the sdpa backward and its bound (the forward's entry at that shape
+    too); with ``KB``, the earlier build's kernels too."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     g = torch.Generator(device="cuda").manual_seed(5)
-    out = {"flash_attn_fwd": _fwd_entry(K, A, TRAIN_SHAPE, card, g)}
+    out = {"flash_attn_fwd": _fwd_entry(K, A, TRAIN_SHAPE, card, g, KB)}
     q, k, v, do = _bwd_inputs(TRAIN_SHAPE, torch.bfloat16, g)
     err, msg = _bwd_check(K, A, q, k, v, do, None)
     print(f"[backward] train shape {list(TRAIN_SHAPE)} bf16: {msg}")
@@ -644,23 +686,23 @@ def phase_backward_times(K, A, card):
     b, h, t, d = TRAIN_SHAPE
     n = q.numel() * q.element_size()
     stats = 2 * b * h * t * 4  # L and D, fp32
-    for name, kern, plain, nbytes, flops in (
-            ("flash_attn_bwd_dq",
-             lambda: K.flash_attn_bwd_dq(q, k, v, do, lse, delta),
-             lambda: A.flash_bwd_dq_reference(q, k, v, do, lse, delta),
+    for name, plain, nbytes, flops in (
+            ("flash_attn_bwd_dq", A.flash_bwd_dq_reference,
              5 * n + stats, 6 * b * h * t * t * d),
-            ("flash_attn_bwd_dkv",
-             lambda: K.flash_attn_bwd_dkv(q, k, v, do, lse, delta),
-             lambda: A.flash_bwd_dkv_reference(q, k, v, do, lse, delta),
+            ("flash_attn_bwd_dkv", A.flash_bwd_dkv_reference,
              6 * n + stats, 8 * b * h * t * t * d)):
-        p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kern), cuda_ms(kern), cuda_ms(plain)
+        args = (q, k, v, do, lse, delta)
+        p1 = cuda_ms(lambda: plain(*args))
+        times = time_kernel(lambda: getattr(K, name)(*args),
+                            KB and (lambda: getattr(KB, name)(*args)))
+        p2 = cuda_ms(lambda: plain(*args))
         bound, by, detail = _bound(nbytes, flops)
-        print(f"[times] {card}: {name} {list(TRAIN_SHAPE)} bf16: kernel {k1:.4f}/{k2:.4f} ms, "
+        print(f"[times] {card}: {name} {list(TRAIN_SHAPE)} bf16: {timing_line(times)}, "
               f"plain {p1:.4f}/{p2:.4f} ms, sdpa backward (dq, dk, dv together) "
               f"{lib:.4f} ms, bound {bound:.4f} ms ({detail})")
-        out[name] = {"shape": list(TRAIN_SHAPE), "max_abs_err": err[name],
-                     "ms": min(k1, k2), "plain_ms": min(p1, p2),
-                     "bound_ms": bound, "bound_by": by, "library_ms": lib}
+        out[name] = {"shape": list(TRAIN_SHAPE), "max_abs_err": err[name], **times,
+                     "plain_ms": min(p1, p2), "bound_ms": bound, "bound_by": by,
+                     "library_ms": lib}
     print(f"[times] {card}: at the train shape, sdpa (flash backend, graphed, best of 2) "
           f"forward {sdpa_f:.4f} ms, forward + backward {sdpa_fb:.4f} ms; eager "
           f"{eager_f:.4f} and {eager_fb:.4f} ms")
@@ -668,6 +710,11 @@ def phase_backward_times(K, A, card):
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--before", metavar="DIR",
+                        help="another checkout of the repo whose kernels are timed "
+                             "beside this tree's (ms_before)")
+    args = parser.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's card path needs one",
               file=sys.stderr)
@@ -681,7 +728,16 @@ def main() -> int:
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t_start = time.perf_counter()
-    phase_build(K)
+    KB = None
+    if args.before:
+        KB = load_before(args.before)
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            pending = pool.submit(KB.build)  # its nvcc runs beside this tree's
+            phase_build(K)
+            pending.result()
+        print(f"[build] kernels of {args.before} built for ms_before")
+    else:
+        phase_build(K)
     phase_kernel_vs_plain(K, A)
     phase_backward_vs_plain(K, A)
     phase_autograd(K, A)
@@ -690,11 +746,11 @@ def main() -> int:
     phase_golden_train(K)
     with tempfile.TemporaryDirectory() as tmp:
         eval_launches = phase_main_path(K, tmp)
-    eval_fwd = phase_times(K, A, card)
+    eval_fwd = phase_times(K, A, card, KB)
     torch.cuda.empty_cache()
     launches = phase_train_main_path(K, card)
     torch.cuda.empty_cache()
-    times = phase_backward_times(K, A, card)
+    times = phase_backward_times(K, A, card, KB)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f}s; launches on the "
           f"eval main path {eval_launches}, on the training main path {launches}")
     # Each entry's launches and times belong to this slice's main path,

@@ -24,14 +24,17 @@
 // streams it.
 //
 // Two bodies, one contract (as csrc/flash_attn_fwd.cu):
-// - bf16 (the training path): mma.sync m16n8k16 with fp32 accumulation.
-//   Four warps own 16 rows each.  The S and dP accumulators have the layout
-//   of the A operand of the next product, so P and dS are rounded to bf16 in
-//   registers and never staged.  The B operands that need the tile's
-//   columns (K in dq = dS K, dO and Q in dkv) are gathered two bf16 values at
-//   a time from the row-major tile in shared memory.
+// - bf16 (the training path).  In both kernels the S and dP accumulators
+//   have the layout of the A operand of the next product, so P and dS are
+//   rounded to bf16 in registers and never staged.
+//   * dq: mma.sync m16n8k16 with fp32 accumulation, four warps of 16 rows,
+//     synchronous staging; the B operand of dq = dS K, needed down the K
+//     tile's columns, is gathered two bf16 values at a time from shared
+//     memory (ldmatrix, TMA and wgmma are later work).
+//   * dk/dv: TMA staging into a ring and wgmma for all four products, with
+//     the column operands read as MN-major wgmma operands (see
+//     bwd_dkv_bf16_kernel).
 // - fp32 (the golden checks and tests): scalar FMA from shared memory.
-// TMA staging, wgmma and ldmatrix are later work.
 //
 // Layout: q, k, v, dout, dq, dk, dv are [BH, T, D] contiguous; lse and delta
 // are [BH, T] fp32.  The kernels mask q rows >= T and keys >= kv_len
@@ -43,6 +46,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -491,111 +496,198 @@ bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// dk/dv, designed for Hopper.  One warpgroup per (batch*head, 64-key tile),
+// no atomics, as before.
+// - Copies: the block's K and V tiles arrive once by TMA; the q and dO tiles
+//   of the head stream through a ring of DKV_STAGES slots by TMA, so tile
+//   i + 1 is in flight while tile i is multiplied.  L and D (fp32 rows of T
+//   values, not 16-byte aligned per head as TMA needs) are loaded one tile
+//   ahead into registers by plain loads, issued before the score products
+//   and stored to shared memory after them.
+// - Products, all wgmma: S^T = K q^T and dP^T = V dO^T with both operands in
+//   shared memory (K, V, q and dO all K-major); dV += P^T dO and dK += dS^T
+//   q with P^T and dS^T rounded to bf16 in registers from the accumulators
+//   and dO and q read as MN-major operands straight from their TMA tiles,
+//   so no operand is gathered column by column.
+// - Masking: rows of q past T take L = +inf (P = 0) and D = 0 where L and D
+//   are loaded, and keys >= kv_len take P = 0; n8 blocks and k16 steps that
+//   hold only such rows or keys are skipped.  dK and dV leave through the K
+//   and V tiles and a TMA store, with the rows of dead keys exact zeros.
+constexpr int DKV_STAGES = 2;
+constexpr float LOG2E = 1.4426950408889634f;
+
 template <int DP>
-__global__ void __launch_bounds__(MT)
-bwd_dkv_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    bf16* __restrict__ dk, bf16* __restrict__ dv, int t, int d,
-                    int kv_len) {
-  constexpr int NKK = DP / 16, NS = MS / 8, NO = DP / 8;
-  __shared__ __align__(16) bf16 qs[MS * (DP + 8)];
-  __shared__ __align__(16) bf16 gs[MS * (DP + 8)];
-  __shared__ float l_s[MS];
-  __shared__ float d_s[MS];
+constexpr size_t dkv_smem_bytes() {
+  // K and V tiles, then per slot a q and a dO tile; then two slots of 64 L
+  // and 64 D values
+  return (size_t)(2 + 2 * DKV_STAGES) * ((DP + 63) / 64) * hopper::TILE_BYTES +
+         2 * 2 * 64 * sizeof(float) + 1024;
+}
+
+// D <= 64 fits three blocks on an SM (at most 168 registers a thread).
+template <int DP>
+__global__ void __launch_bounds__(MT, DP <= 64 ? 3 : 1)
+bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap gmap,
+                    const __grid_constant__ CUtensorMap dkmap,
+                    const __grid_constant__ CUtensorMap dvmap, const float* __restrict__ lse,
+                    const float* __restrict__ delta, int t, int d, int n_kv) {
+  using namespace hopper;
+  constexpr int NC = (DP + 63) / 64;     // 64-column chunks of a tile
+  constexpr int TILE = NC * TILE_BYTES;  // one 64-row tile over the whole depth
+  constexpr int NKS = DP / 16;           // k16 steps of the score products
+  constexpr int NS = 8;                  // n8 blocks of a 64-column score tile
+  constexpr int NO = 32 * NC;            // dK, dV accumulators: 64 keys x 64 NC
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t kv_full, q_full[DKV_STAGES];
+  uint8_t* ks = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* vs = ks + TILE;
+  uint8_t* qs = vs + TILE;                 // [DKV_STAGES] q tiles
+  uint8_t* gs = qs + DKV_STAGES * TILE;    // [DKV_STAGES] dO tiles
+  // [2][64] L, then [2][64] D, by tile parity: tile i's L sits at stats + 64 (i % 2)
+  float* stats = reinterpret_cast<float*>(gs + DKV_STAGES * TILE);
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, c = lane % 4;
-  const int k0 = blockIdx.x * MR;
-  const size_t base = (size_t)blockIdx.y * t * d;
-  const size_t sbase = (size_t)blockIdx.y * t;
-  const int n_kv = min(kv_len, t);
+  const int k0 = blockIdx.x * MR, bh = blockIdx.y;
+  const int n_qt = (t + MS - 1) / MS;
   // this thread's two keys, g and g + 8
   const int r0 = k0 + warp * 16 + g, r1 = r0 + 8;
   const bool live0 = r0 < n_kv, live1 = r1 < n_kv;
+  const bool warp_dead = k0 + warp * 16 >= n_kv;
 
-  float ak[NO][4], av[NO][4];
+  float ak[NO], av[NO];
 #pragma unroll
-  for (int n = 0; n < NO; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) ak[n][e] = av[n][e] = 0.f;
+  for (int i = 0; i < NO; ++i) ak[i] = av[i] = 0.f;
 
   if (k0 < n_kv) {  // a tile of dead keys keeps its zero gradients
-    // K and V through the q and dO buffers into registers, once.
-    stage_tile<DP>(qs, k + base, k0, n_kv, d, tid);
-    stage_tile<DP>(gs, v + base, k0, n_kv, d, tid);
-    __syncthreads();
-    uint32_t kf[NKK][4], vf[NKK][4];
-    load_a<DP>(kf, qs, warp, g, c);
-    load_a<DP>(vf, gs, warp, g, c);
+    auto load_q_tile = [&](int i, int s) {
+      mbar_expect_tx(&q_full[s], 2 * TILE);
+      tma_load_rows<NC>(qs + s * TILE, &qmap, &q_full[s], MS * i, bh);
+      tma_load_rows<NC>(gs + s * TILE, &gmap, &q_full[s], MS * i, bh);
+    };
+    // Thread j < 64 holds L log2(e) of q row j of a tile, thread 64 + j its
+    // D; rows past T hold +inf and 0.
+    const float* src = tid < 64 ? lse : delta;
+    const float pad = tid < 64 ? INFINITY : 0.f;
+    const float scale = tid < 64 ? LOG2E : 1.f;
+    auto load_stat = [&](int i) {
+      const int row = MS * i + tid % 64;
+      return row < t ? src[(size_t)bh * t + row] * scale : pad;
+    };
+    stats[tid % 64 + 128 * (tid / 64)] = load_stat(0);
+    if (tid == 0) {
+      mbar_init(&kv_full, 1);
+      for (int s = 0; s < DKV_STAGES; ++s) mbar_init(&q_full[s], 1);
+      mbar_fence_init();
+    }
+    __syncthreads();  // barriers ready; tile 0's L and D stored
+    if (tid == 0) {
+      mbar_expect_tx(&kv_full, 2 * TILE);
+      tma_load_rows<NC>(ks, &kmap, &kv_full, k0, bh);
+      tma_load_rows<NC>(vs, &vmap, &kv_full, k0, bh);
+      for (int i = 0; i < min(n_qt, DKV_STAGES); ++i) load_q_tile(i, i);
+    }
+    mbar_wait(&kv_full, 0);
 
-    for (int q0 = 0; q0 < t; q0 += MS) {
-      __syncthreads();  // fragments taken; the previous q tile is consumed
-      stage_tile<DP>(qs, q + base, q0, t, d, tid);
-      stage_tile<DP>(gs, dout + base, q0, t, d, tid);
-      if (tid < MS) {
-        const bool live = q0 + tid < t;
-        l_s[tid] = live ? lse[sbase + q0 + tid] : INFINITY;
-        d_s[tid] = live ? delta[sbase + q0 + tid] : 0.f;
-      }
-      __syncthreads();
+    for (int i = 0; i < n_qt; ++i) {
+      const int s = i % DKV_STAGES, q0 = MS * i;
+      uint8_t* qt = qs + s * TILE;
+      uint8_t* gt = gs + s * TILE;
+      const float* lt = stats + 64 * (i % 2);
+      const float* dt = lt + 128;
+      const float next = i + 1 < n_qt ? load_stat(i + 1) : 0.f;
+      mbar_wait(&q_full[s], (i / DKV_STAGES) & 1);
 
-      // P^T = exp(S^T - L) over this thread's keys and the tile's q rows
-      // 8 j + 2 c + e; dV += P^T dO with P^T rounded to bf16.
-      float p[NS][4];
-      mma_abt<DP>(p, kf, qs, g, c);
-      uint32_t pf[MS / 16][4];
+      float sacc[32], pacc[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < NKS; ++kk)  // the first steps overwrite sacc and pacc
+        wgmma_ss_n64(sacc, desc_k(ks, kk), desc_k(qt, kk), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < NKS; ++kk) wgmma_ss_n64(pacc, desc_k(vs, kk), desc_k(gt, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      // tile i - 1 read the other half before the barrier that closed it
+      stats[tid % 64 + 128 * (tid / 64) + 64 * ((i + 1) % 2)] = next;
+
+      // P^T = exp(S^T - L) = exp2(S^T log2 e - L log2 e) and dS^T = P^T *
+      // (dP^T - D) over this thread's keys and the tile's q rows 8 j + 2 c +
+      // e, both rounded to bf16.  An n8 block of q rows past T, or a warp
+      // whose 16 keys are all dead (both uniform across the warp), has P = 0
+      // and takes no exponentials.
+      uint32_t pf[4][4], sf[4][4];
 #pragma unroll
       for (int j = 0; j < NS; ++j) {
+        if (q0 + 8 * j >= t || warp_dead) {
+          pf[j / 2][(j % 2) * 2] = pf[j / 2][(j % 2) * 2 + 1] = 0u;
+          sf[j / 2][(j % 2) * 2] = sf[j / 2][(j % 2) * 2 + 1] = 0u;
+          continue;
+        }
+        float p[4], ds[4];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const float l = l_s[8 * j + 2 * c + e];
-          p[j][e] = live0 ? expf(p[j][e] - l) : 0.f;
-          p[j][2 + e] = live1 ? expf(p[j][2 + e] - l) : 0.f;
+          const int col = 8 * j + 2 * c + e;
+          const float l = lt[col], dd = dt[col];
+          p[e] = live0 ? exp2f(fmaf(sacc[4 * j + e], LOG2E, -l)) : 0.f;
+          p[2 + e] = live1 ? exp2f(fmaf(sacc[4 * j + 2 + e], LOG2E, -l)) : 0.f;
+          ds[e] = p[e] * (pacc[4 * j + e] - dd);
+          ds[2 + e] = p[2 + e] * (pacc[4 * j + 2 + e] - dd);
         }
-        pf[j / 2][(j % 2) * 2] = pack_bf16(p[j][0], p[j][1]);
-        pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[j][2], p[j][3]);
-      }
-      mma_a_tile<DP>(av, pf, gs, g, c);
-
-      // dS^T = P^T * (dP^T - D) with dP^T = V dO^T; dK += dS^T Q.
-      float dp[NS][4];
-      mma_abt<DP>(dp, vf, gs, g, c);
-      uint32_t sf[MS / 16][4];
-#pragma unroll
-      for (int j = 0; j < NS; ++j) {
-        float ds[4];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float dd = d_s[8 * j + 2 * c + e];
-          ds[e] = p[j][e] * (dp[j][e] - dd);
-          ds[2 + e] = p[j][2 + e] * (dp[j][2 + e] - dd);
-        }
+        pf[j / 2][(j % 2) * 2] = pack_bf16(p[0], p[1]);
+        pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
         sf[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
         sf[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
       }
-      mma_a_tile<DP>(ak, sf, qs, g, c);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (q0 + 16 * kk >= t) break;  // P^T = dS^T = 0 for the rest of the tile
+        if constexpr (NC == 1) {
+          wgmma_rs_n64(av, pf[kk], desc_mn(gt, kk), 1);
+          wgmma_rs_n64(ak, sf[kk], desc_mn(qt, kk), 1);
+        } else {
+          wgmma_rs_n128(av, pf[kk], desc_mn(gt, kk), 1);
+          wgmma_rs_n128(ak, sf[kk], desc_mn(qt, kk), 1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+
+      __syncthreads();  // every warp is done with slot s; tile i + 1's L, D stored
+      if (tid == 0 && i + DKV_STAGES < n_qt) {
+        fence_proxy_async();
+        load_q_tile(i + DKV_STAGES, s);
+      }
     }
   }
 
+  // dK and dV through the K and V tiles (free once the last products are
+  // done), then out by TMA, which drops the rows past T and columns past D;
+  // the rows of dead keys are written as exact zeros.
   const bf16 zero = __float2bfloat16(0.f);
   const uint32_t zz = pack2(zero, zero);
+  const int rr = warp * 16 + g;
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    if (8 * n >= d) break;
+  for (int n = 0; n < NO / 4; ++n) {
     const int col = 8 * n + 2 * c;
-    if (r0 < t) {
-      *reinterpret_cast<uint32_t*>(dk + base + (size_t)r0 * d + col) =
-          live0 ? pack_bf16(ak[n][0], ak[n][1]) : zz;
-      *reinterpret_cast<uint32_t*>(dv + base + (size_t)r0 * d + col) =
-          live0 ? pack_bf16(av[n][0], av[n][1]) : zz;
-    }
-    if (r1 < t) {
-      *reinterpret_cast<uint32_t*>(dk + base + (size_t)r1 * d + col) =
-          live1 ? pack_bf16(ak[n][2], ak[n][3]) : zz;
-      *reinterpret_cast<uint32_t*>(dv + base + (size_t)r1 * d + col) =
-          live1 ? pack_bf16(av[n][2], av[n][3]) : zz;
-    }
+    *reinterpret_cast<uint32_t*>(ks + swizzled(rr, col)) =
+        live0 ? pack_bf16(ak[4 * n], ak[4 * n + 1]) : zz;
+    *reinterpret_cast<uint32_t*>(vs + swizzled(rr, col)) =
+        live0 ? pack_bf16(av[4 * n], av[4 * n + 1]) : zz;
+    *reinterpret_cast<uint32_t*>(ks + swizzled(rr + 8, col)) =
+        live1 ? pack_bf16(ak[4 * n + 2], ak[4 * n + 3]) : zz;
+    *reinterpret_cast<uint32_t*>(vs + swizzled(rr + 8, col)) =
+        live1 ? pack_bf16(av[4 * n + 2], av[4 * n + 3]) : zz;
+  }
+  fence_proxy_async();
+  __syncthreads();
+  if (tid == 0) {
+    tma_store_rows<NC>(&dkmap, ks, k0, bh);
+    tma_store_rows<NC>(&dvmap, vs, k0, bh);
   }
 }
 
@@ -649,9 +741,18 @@ template <int DP>
 cudaError_t launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* g,
                             const float* lse, const float* delta, bf16* dk, bf16* dv,
                             int bh, int t, int d, int kv_len, cudaStream_t stream) {
+  const int n_kv = min(kv_len, t);
+  CUtensorMap qmap, kmap, vmap, gmap, dkmap, dvmap;
+  if (!hopper::map_rows(&qmap, q, bh, t, t, d) || !hopper::map_rows(&kmap, k, bh, n_kv, t, d) ||
+      !hopper::map_rows(&vmap, v, bh, n_kv, t, d) || !hopper::map_rows(&gmap, g, bh, t, t, d) ||
+      !hopper::map_rows(&dkmap, dk, bh, t, t, d) || !hopper::map_rows(&dvmap, dv, bh, t, t, d))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = dkv_smem_bytes<DP>();
+  const cudaError_t err = hopper::allow_smem<bwd_dkv_bf16_kernel<DP>>(smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((t + MR - 1) / MR, bh);
-  bwd_dkv_bf16_kernel<DP><<<grid, MT, 0, stream>>>(q, k, v, g, lse, delta, dk, dv, t, d,
-                                                   kv_len);
+  bwd_dkv_bf16_kernel<DP><<<grid, MT, smem, stream>>>(qmap, kmap, vmap, gmap, dkmap, dvmap, lse,
+                                                      delta, t, d, n_kv);
   return cudaGetLastError();
 }
 

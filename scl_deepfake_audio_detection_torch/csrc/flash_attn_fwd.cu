@@ -8,19 +8,37 @@
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16) at the XLS-R 300M eval
 // shape [16, 16, 201, 64] bf16: 4*B*H*T*T*D = 2.65 GFLOP (2.7 us) against
-// 26.5 MB of q, k, v, O and LSE (7.9 us), so it is memory-bound at ~7.9 us.
-// Each block owns a 64-row q tile and streams 64-key K/V tiles through
-// shared memory, so S and P never leave the chip and every input byte
-// leaves device memory once per q tile.
+// 26.5 MB of q, k, v, O and LSE (7.9 us), so it is memory-bound at ~7.9 us:
+// the design has to read each byte of K and V from device memory once per
+// head and keep the load latency under the tensor-core work.
 //
 // Two bodies, one contract:
-// - bf16 (the eval path): tensor cores through mma.sync m16n8k16 with fp32
-//   accumulation.  Four warps own 16 q rows each; S comes out of the QK^T
-//   product in exactly the register layout that the PV product takes as its
-//   A operand, so P is rounded to bf16 in registers and never staged.
+// - bf16 (the eval and training paths), designed for Hopper:
+//   * one block per (batch*head, NW * 64 q rows), NW consumer warpgroups of
+//     64 q rows each.  NW = 2 (FLASH_FWD_WARPGROUPS) measured faster than
+//     one block of 4 per head at both main-path shapes
+//     (scripts/time_flash_fwd_variants.py, PERF.md);
+//   * K and V arrive by TMA (csrc/hopper.cuh) in 64-key tiles into a ring
+//     of STAGES = 4 slots, one mbarrier per slot.  A head of T <= 256 has at
+//     most 4 key tiles, so its whole K and V are loaded once, up front, and
+//     every q tile of the block is computed from that one copy; longer
+//     heads stream through the ring, each slot refilled once all the
+//     block's warpgroups have released it;
+//   * TMA zero-fills the rows past kv_len (the K/V maps end there) and past
+//     T, and the columns past D, so loads need no masking; keys >= kv_len
+//     are masked to -inf in registers;
+//   * S = Q K^T is a wgmma with both operands in shared memory (Q and K
+//     K-major); P is rounded to bf16 in registers straight from the S
+//     accumulator, which has the layout of wgmma's register A operand; O +=
+//     P V is a wgmma with P from registers and V as an MN-major operand
+//     read from its TMA tile as it is, so V is never transposed;
+//   * each warpgroup keeps two key tiles in flight: the tensor cores run
+//     tile i - 1's P V while the warpgroup computes tile i's softmax (exp
+//     as exp2 with log2 e folded into one FFMA);
+//   * O goes out through the warpgroup's Q tile and a TMA store, which drops
+//     the rows past T and the columns past D.
 // - fp32 (the golden checks and tests): scalar FMA from shared memory,
 //   since the tensor cores have no full-precision fp32 product.
-// TMA staging and wgmma are later work.
 //
 // Layout: q, k, v, o are [BH, T, D] contiguous; lse is [BH, T].
 // The kernel masks q rows >= T and keys >= kv_len itself; the caller pads
@@ -31,6 +49,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -207,132 +227,148 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, float* o,
 
 // ---------------------------------------------------------------- bf16 body
 
-constexpr int MQ = 64;         // q rows per block: 4 warps x 16 rows
-constexpr int MK = 64;         // keys per streamed tile (== MQ: Q is staged in the K buffer)
-constexpr int MT = 128;        // threads per block
-static_assert(MQ == 64 && MK == 64, "stage_tile moves 64-row tiles");
 typedef __nv_bfloat16 bf16;
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+#ifndef FLASH_FWD_WARPGROUPS
+#define FLASH_FWD_WARPGROUPS 2
+#endif
+constexpr int NW = FLASH_FWD_WARPGROUPS;  // consumer warpgroups per block
+constexpr int STAGES = 4;                 // K/V tiles held at once
+constexpr float LOG2E = 1.4426950408889634f;
+static_assert(NW == 2 || NW == 4, "a block holds 2 or 4 warpgroups");
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x in the low half
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// c += a (16x16, row-major fragment) * b (16x8, column-major fragment), fp32 sum.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Rows [r0, r0 + 64) of a [nrows, d] matrix into dst [64][DP + 8], 16 bytes a
-// thread; rows >= nrows and columns >= d are zero.  With `transpose` the
-// tile lands as dst [DP][64 + 8] (column c of the source is row c of dst).
-template <int DP, bool transpose>
-__device__ __forceinline__ void stage_tile(bf16* __restrict__ dst,
-                                           const bf16* __restrict__ src,
-                                           int r0, int nrows, int d, int tid) {
-  constexpr int C8 = DP / 8;
-  for (int i = tid; i < 64 * C8; i += MT) {
-    const int r = i / C8, c = (i % C8) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < nrows && c < d)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * d + c);
-    if (!transpose) {
-      *reinterpret_cast<uint4*>(dst + r * (DP + 8) + c) = val;
-    } else {
-      const uint32_t w[4] = {val.x, val.y, val.z, val.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        dst[(c + 2 * j) * (64 + 8) + r] = __ushort_as_bfloat16((unsigned short)(w[j] & 0xffffu));
-        dst[(c + 2 * j + 1) * (64 + 8) + r] = __ushort_as_bfloat16((unsigned short)(w[j] >> 16));
-      }
-    }
-  }
-}
-
-// DP = D rounded up to 16 (the product depth); the padding columns are zero.
-//
-// mma.sync m16n8k16 fragments, with g = lane / 4 and c = lane % 4:
-//   A (16x16): regs {row g, k 2c..2c+1}, {row g+8, same}, {row g, k 2c+8..},
-//              {row g+8, k 2c+8..};
-//   B (16x8):  regs {k 2c..2c+1, n g}, {k 2c+8..2c+9, n g};
-//   C (16x8):  {row g, n 2c}, {row g, n 2c+1}, {row g+8, n 2c}, {row g+8, n 2c+1}.
-// Shared-memory rows are padded by 8 bf16 (16 bytes), so the eight rows a
-// fragment load touches fall in distinct banks.
+// Dynamic shared memory: NW Q tiles, then STAGES K tiles and STAGES V
+// tiles, each 64 rows over ceil(DP / 64) chunks, plus slack to align them.
 template <int DP>
-__global__ void __launch_bounds__(MT)
-flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ o,
-                      float* __restrict__ lse, int t, int d, int kv_len) {
-  constexpr int KS = DP + 8;  // row stride of the Q / K tile
-  constexpr int VS = MK + 8;  // row stride of the transposed V tile
-  constexpr int NKK = DP / 16;  // k-steps of QK^T
-  constexpr int NS = MK / 8;    // n-tiles of S
-  constexpr int NO = DP / 8;    // n-tiles of O
-  __shared__ __align__(16) bf16 ks[MK * KS];
-  __shared__ __align__(16) bf16 vts[DP * VS];
+constexpr size_t fwd_smem_bytes() {
+  return (size_t)(NW + 2 * STAGES) * ((DP + 63) / 64) * hopper::TILE_BYTES + 1024;
+}
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+// DP = D rounded up to 16 (the depth of Q K^T); the padding columns are zero.
+template <int DP>
+__global__ void __launch_bounds__(NW * 128, DP <= 64 ? 4 / NW : 1)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap,
+                      const __grid_constant__ CUtensorMap omap,
+                      float* __restrict__ lse, int t, int d, int n_kv) {
+  using namespace hopper;
+  constexpr int NC = (DP + 63) / 64;   // 64-column chunks of a tile
+  constexpr int TILE = NC * TILE_BYTES;  // one 64-row tile over the whole depth
+  constexpr int NKS = DP / 16;         // k16 steps of Q K^T
+  constexpr int NS = 8;                // n8 blocks of S (64 keys)
+  constexpr int NO = 32 * NC;          // O accumulators: 64 rows x 64 NC columns
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, kv_full[STAGES], kv_empty[STAGES];
+  uint8_t* qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* ks = qs + NW * TILE;
+  uint8_t* vs = ks + STAGES * TILE;
+
+  const int tid = threadIdx.x, wg = tid / 128, warp = (tid / 32) % 4, lane = tid % 32;
   const int g = lane / 4, c = lane % 4;
-  const int q0 = blockIdx.x * MQ;
-  const size_t base = (size_t)blockIdx.y * t * d;
-  const int n_kv = min(kv_len, t);
+  const int bh = blockIdx.y, row0 = blockIdx.x * NW * 64;
+  const int n_kt = (n_kv + 63) / 64;
 
-  // Q through the K buffer into registers, once.
-  stage_tile<DP, false>(ks, q + base, q0, t, d, tid);
+  if (tid == 0) {
+    mbar_init(&q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&kv_full[s], 1);
+      mbar_init(&kv_empty[s], NW * 4);  // one arrival per consumer warp
+    }
+    mbar_fence_init();
+  }
   __syncthreads();
-  uint32_t qf[NKK][4];
-  {
-    const bf16* row = ks + (warp * 16 + g) * KS + 2 * c;
-#pragma unroll
-    for (int kk = 0; kk < NKK; ++kk) {
-      qf[kk][0] = ld32(row + kk * 16);
-      qf[kk][1] = ld32(row + 8 * KS + kk * 16);
-      qf[kk][2] = ld32(row + kk * 16 + 8);
-      qf[kk][3] = ld32(row + 8 * KS + kk * 16 + 8);
+  if (tid == 0) {
+    mbar_expect_tx(&q_full, NW * TILE);
+    for (int w = 0; w < NW; ++w)
+      tma_load_rows<NC>(qs + w * TILE, &qmap, &q_full, row0 + 64 * w, bh);
+    for (int i = 0; i < min(n_kt, STAGES); ++i) {
+      mbar_expect_tx(&kv_full[i], 2 * TILE);
+      tma_load_rows<NC>(ks + i * TILE, &kmap, &kv_full[i], 64 * i, bh);
+      tma_load_rows<NC>(vs + i * TILE, &vmap, &kv_full[i], 64 * i, bh);
     }
   }
 
-  float acc[NO][4];
+  uint8_t* my_q = qs + wg * TILE;
+  float acc[NO];
 #pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  // running max and sum of this thread's two rows, g and g + 8
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+  // running max (of the raw scores) and this thread's partial sums of rows
+  // g and g + 8; the sums are reduced over the quad at the end
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+  mbar_wait(&q_full, 0);
 
-  for (int k0 = 0; k0 < n_kv; k0 += MK) {
-    __syncthreads();  // Q fragments taken; the previous tile is consumed
-    stage_tile<DP, false>(ks, k + base, k0, n_kv, d, tid);
-    stage_tile<DP, true>(vts, v + base, k0, n_kv, d, tid);
-    __syncthreads();
-
-    float s[NS][4];
+  // S of tile i into sacc, on the tensor cores, left in flight.
+  auto issue_s = [&](float (&sacc)[32], int i) {
+    const int s = i % STAGES;
+    mbar_wait(&kv_full[s], (i / STAGES) & 1);
+    pin(sacc);
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      const bf16* krow = ks + (8 * j + g) * KS + 2 * c;
+    for (int kk = 0; kk < NKS; ++kk)  // the first step overwrites sacc
+      wgmma_ss_n64(sacc, desc_k(my_q, kk), desc_k(ks + s * TILE, kk), kk > 0);
+    wgmma_commit();
+    pin(sacc);
+  };
+  // acc += P V of tile i, left in flight.
+  auto issue_pv = [&](uint32_t (&pf)[4][4], int i) {
+    const uint8_t* vt = vs + (i % STAGES) * TILE;
+    pin(acc);
+    pin(pf);
+    wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < NKK; ++kk)
-        mma_bf16(s[j], qf[kk], ld32(krow + kk * 16), ld32(krow + kk * 16 + 8));
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (NC == 1)
+        wgmma_rs_n64(acc, pf[kk], desc_mn(vt, kk), 1);
+      else
+        wgmma_rs_n128(acc, pf[kk], desc_mn(vt, kk), 1);
     }
-
-    // Mask dead keys; every tile holds a live key, so each row max is finite.
+    wgmma_commit();
+    pin(acc);
+    pin(pf);
+  };
+  // Tile i's slot goes back once this warpgroup's P V of it is done; the
+  // block's first thread refills it once every consumer warp has.
+  auto release = [&](int i) {
+    const int s = i % STAGES;
+    if (lane == 0) mbar_arrive(&kv_empty[s]);
+    if (tid == 0 && i + STAGES < n_kt) {
+      mbar_wait(&kv_empty[s], (i / STAGES) & 1);
+      mbar_expect_tx(&kv_full[s], 2 * TILE);
+      tma_load_rows<NC>(ks + s * TILE, &kmap, &kv_full[s], 64 * (i + STAGES), bh);
+      tma_load_rows<NC>(vs + s * TILE, &vmap, &kv_full[s], 64 * (i + STAGES), bh);
+    }
+    __syncwarp();
+  };
+  // Online softmax of tile i's scores: updates the running max and sums,
+  // writes P (rounded to bf16, as the A operand of P V) and returns the
+  // rescale factors of the rows' earlier sums in al0, al1.  Reads the S
+  // accumulator and never writes it.
+  auto softmax = [&](const float (&sacc_in)[32], uint32_t (&pf)[4][4], int i, float& al0,
+                     float& al1) {
+    const int k0 = 64 * i;
+    // Mask dead keys (only the last tile has any); every tile holds a live
+    // key, so each row max is finite.
+    float sacc[32];
+#pragma unroll
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool dead = k0 + 8 * j + 2 * c + e >= n_kv;
+        sacc[4 * j + e] = dead ? -INFINITY : sacc_in[4 * j + e];
+        sacc[4 * j + 2 + e] = dead ? -INFINITY : sacc_in[4 * j + 2 + e];
+      }
     float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        if (k0 + 8 * j + 2 * c + e >= n_kv) s[j][e] = s[j][2 + e] = -INFINITY;
-        mx0 = fmaxf(mx0, s[j][e]);
-        mx1 = fmaxf(mx1, s[j][2 + e]);
-      }
+      mx0 = fmaxf(mx0, fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+      mx1 = fmaxf(mx1, fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
     }
     // a row's 64 scores are spread over the four lanes of a quad
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
@@ -340,62 +376,81 @@ flash_fwd_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
     const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-    const float al0 = expf(m0 - mn0), al1 = expf(m1 - mn1);
+    // exp(x - m) as exp2(x log2 e - m log2 e), one FFMA and one MUFU op
+    const float ms0 = mn0 * LOG2E, ms1 = mn1 * LOG2E;
+    al0 = exp2f(fmaf(m0, LOG2E, -ms0));
+    al1 = exp2f(fmaf(m1, LOG2E, -ms1));
     m0 = mn0;
     m1 = mn1;
-
-    // P in fp32 for the row sums, rounded to bf16 as the A operand of PV:
-    // n-tiles 2i and 2i + 1 of S are k-step i of the PV product.
     float sum0 = 0.f, sum1 = 0.f;
-    uint32_t pf[MK / 16][4];
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
-      const float p00 = expf(s[j][0] - mn0), p01 = expf(s[j][1] - mn0);
-      const float p10 = expf(s[j][2] - mn1), p11 = expf(s[j][3] - mn1);
+      const float p00 = exp2f(fmaf(sacc[4 * j], LOG2E, -ms0));
+      const float p01 = exp2f(fmaf(sacc[4 * j + 1], LOG2E, -ms0));
+      const float p10 = exp2f(fmaf(sacc[4 * j + 2], LOG2E, -ms1));
+      const float p11 = exp2f(fmaf(sacc[4 * j + 3], LOG2E, -ms1));
       sum0 += p00 + p01;
       sum1 += p10 + p11;
       pf[j / 2][(j % 2) * 2] = pack_bf16(p00, p01);
       pf[j / 2][(j % 2) * 2 + 1] = pack_bf16(p10, p11);
     }
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 1);
-    sum0 += __shfl_xor_sync(0xffffffffu, sum0, 2);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 1);
-    sum1 += __shfl_xor_sync(0xffffffffu, sum1, 2);
     l0 = l0 * al0 + sum0;
     l1 = l1 * al1 + sum1;
+  };
 
+  // Two tiles in flight: while the tensor cores run tile i - 1's P V, the
+  // warpgroup computes tile i's softmax; acc is rescaled once that P V is
+  // done.  pf holds the P in flight, pn the next one.
+  float sacc[32], al0, al1;
+  uint32_t pf[4][4], pn[4][4];
+  issue_s(sacc, 0);
+  wgmma_wait<0>();
+  pin(sacc);
+  softmax(sacc, pf, 0, al0, al1);
+  for (int i = 1; i < n_kt; ++i) {
+    issue_s(sacc, i);
+    issue_pv(pf, i - 1);
+    wgmma_wait<1>();  // S of tile i is done
+    pin(sacc);
+    softmax(sacc, pn, i, al0, al1);
+    wgmma_wait<0>();  // P V of tile i - 1 is done
+    pin(acc);
+    pin(pf);
+    release(i - 1);
 #pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      acc[n][0] *= al0;
-      acc[n][1] *= al0;
-      acc[n][2] *= al1;
-      acc[n][3] *= al1;
+    for (int j = 0; j < NO / 4; ++j) {
+      acc[4 * j] *= al0;
+      acc[4 * j + 1] *= al0;
+      acc[4 * j + 2] *= al1;
+      acc[4 * j + 3] *= al1;
     }
-#pragma unroll
-    for (int i = 0; i < MK / 16; ++i) {
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const bf16* vrow = vts + (8 * n + g) * VS + 16 * i + 2 * c;
-        mma_bf16(acc[n], pf[i], ld32(vrow), ld32(vrow + 8));
-      }
-    }
+    move(pf, pn);  // only pf is ever a wgmma operand
   }
+  issue_pv(pf, n_kt - 1);
+  wgmma_wait<0>();  // the last tile's slot is never refilled
+  pin(acc);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
 
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
+  // O through this warpgroup's Q tile, whose last reader (the last S) is
+  // done, then out by TMA, which drops the rows past T and columns past D.
+  const int rr = warp * 16 + g, r0 = row0 + wg * 64 + rr;
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    if (8 * n >= d) break;
+  for (int n = 0; n < NO / 4; ++n) {
     const int col = 8 * n + 2 * c;
-    if (r0 < t)
-      *reinterpret_cast<uint32_t*>(o + base + (size_t)r0 * d + col) =
-          pack_bf16(acc[n][0] / l0, acc[n][1] / l0);
-    if (r1 < t)
-      *reinterpret_cast<uint32_t*>(o + base + (size_t)r1 * d + col) =
-          pack_bf16(acc[n][2] / l1, acc[n][3] / l1);
+    *reinterpret_cast<uint32_t*>(my_q + swizzled(rr, col)) =
+        pack_bf16(acc[4 * n] / l0, acc[4 * n + 1] / l0);
+    *reinterpret_cast<uint32_t*>(my_q + swizzled(rr + 8, col)) =
+        pack_bf16(acc[4 * n + 2] / l1, acc[4 * n + 3] / l1);
   }
+  fence_proxy_async();
+  warpgroup_sync(1 + wg);
+  if (tid % 128 == 0) tma_store_rows<NC>(&omap, my_q, row0 + wg * 64, bh);
   if (c == 0) {
-    if (r0 < t) lse[(size_t)blockIdx.y * t + r0] = m0 + logf(l0);
-    if (r1 < t) lse[(size_t)blockIdx.y * t + r1] = m1 + logf(l1);
+    if (r0 < t) lse[(size_t)bh * t + r0] = m0 + logf(l0);
+    if (r0 + 8 < t) lse[(size_t)bh * t + r0 + 8] = m1 + logf(l1);
   }
 }
 
@@ -403,8 +458,17 @@ template <int DP>
 cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                         float* lse, int bh, int t, int d, int kv_len,
                         cudaStream_t stream) {
-  const dim3 grid((t + MQ - 1) / MQ, bh);
-  flash_fwd_bf16_kernel<DP><<<grid, MT, 0, stream>>>(q, k, v, o, lse, t, d, kv_len);
+  const int n_kv = min(kv_len, t);
+  CUtensorMap qmap, kmap, vmap, omap;
+  if (!hopper::map_rows(&qmap, q, bh, t, t, d) || !hopper::map_rows(&kmap, k, bh, n_kv, t, d) ||
+      !hopper::map_rows(&vmap, v, bh, n_kv, t, d) || !hopper::map_rows(&omap, o, bh, t, t, d))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = fwd_smem_bytes<DP>();
+  const cudaError_t err = hopper::allow_smem<flash_fwd_bf16_kernel<DP>>(smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((t + NW * 64 - 1) / (NW * 64), bh);
+  flash_fwd_bf16_kernel<DP><<<grid, NW * 128, smem, stream>>>(qmap, kmap, vmap, omap, lse, t,
+                                                              d, n_kv);
   return cudaGetLastError();
 }
 

@@ -5,8 +5,9 @@ Each kernel is a plain C entry point in a ``csrc/*.cu`` source
 ``sm_90a`` into a shared library under ``_build/`` (listed in
 ``.gitignore``) and loaded with ``ctypes``; nothing is compiled at import,
 so the CPU tests import this module without ``nvcc``.  The library name
-carries a hash of the source and the flags, so an edited source is rebuilt
-and a stale library is never loaded.
+carries a hash of the source, the shared headers (``csrc/*.cuh``) and the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded.
 
 Every wrapper adds one to ``LAUNCHES[name]`` where it launches its kernel
 and nowhere else, so a run can show which kernels its path went through.
@@ -68,10 +69,12 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    """The shared library that holds kernel ``name`` (one per source)."""
+    """The shared library that holds kernel ``name`` (one per source); its
+    name hashes the source, the headers it may include and the flags."""
     src = CSRC / SOURCES[name]
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 

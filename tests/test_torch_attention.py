@@ -139,6 +139,19 @@ def test_kernel_library_name_tracks_source_and_flags():
     assert (_kernels.CSRC / "flash_attn_fwd.cu").exists()
 
 
+def test_kernel_library_name_tracks_the_shared_headers(tmp_path, monkeypatch):
+    """Both sources include csrc/hopper.cuh, so an edited header must give
+    new library names, or a stale build would be loaded."""
+    for src in _kernels.CSRC.iterdir():
+        (tmp_path / src.name).write_bytes(src.read_bytes())
+    monkeypatch.setattr(_kernels, "CSRC", tmp_path)
+    before = {name: _kernels._library_path(name) for name in _kernels.KERNELS}
+    header = tmp_path / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: _kernels._library_path(name) for name in _kernels.KERNELS}
+    assert all(before[name] != after[name] for name in _kernels.KERNELS)
+
+
 def test_reset_launches_zeroes_every_counter():
     _kernels.LAUNCHES["flash_attn_fwd"] += 3
     _kernels.reset_launches()

@@ -18,6 +18,11 @@ from scl_deepfake_audio_detection_torch.ops import attention as PA
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (3e-2, 1e-4)}
+# (T, kv_len): the main path's lengths, one and a long one, and the seams of
+# the bf16 kernels' design: a 64-row TMA box edge (63, 64, 65) and the
+# forward's switch from K/V held whole (T <= 256) to K/V streamed (257)
+SEQS = [(1, None), (63, None), (64, None), (65, 60), (199, None), (201, 188),
+        (256, None), (257, 250), (1024, 1011)]
 
 
 def _need_card():
@@ -30,7 +35,7 @@ def _need_card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("d", [8, 64, 80, 96, 120, 128])
-@pytest.mark.parametrize("t,kv_len", [(1, None), (199, None), (201, 188), (1024, 1011)])
+@pytest.mark.parametrize("t,kv_len", SEQS)
 def test_flash_kernel_matches_plain_version(dtype, d, t, kv_len):
     _need_card()
     g = torch.Generator(device="cuda").manual_seed(t * 1000 + d)
@@ -63,7 +68,7 @@ def test_flash_kernel_refuses_misaligned_inputs():
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("d", [8, 64, 80, 128])
-@pytest.mark.parametrize("t,kv_len", [(1, None), (199, None), (201, 188), (1024, 1011)])
+@pytest.mark.parametrize("t,kv_len", SEQS)
 def test_backward_kernels_match_plain_versions(dtype, d, t, kv_len):
     """fp32 to 2e-5 (summation order); bf16 to one bf16 ulp of the largest
     |gradient| (2^-7 of max) plus 2e-5 for gradients that are zero up to
@@ -90,6 +95,23 @@ def test_backward_kernels_match_plain_versions(dtype, d, t, kv_len):
         assert (a.float() - b.float()).abs().max().item() <= tol
     if kv_len is not None:
         assert not got[1][:, :, kv_len:].any() and not got[2][:, :, kv_len:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,kv_len", [(199, None), (257, 250)])
+def test_dkv_kernel_is_deterministic(t, kv_len):
+    """dk/dv uses no atomics: two launches on the same inputs agree bit for bit."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(t)
+    shape = (2, 16, t, 64)
+    q = (torch.randn(shape, device="cuda", generator=g) / 8).bfloat16()
+    k, v, do = (torch.randn(shape, device="cuda", generator=g).bfloat16() for _ in range(3))
+    o, lse = PA.flash_attention_forward(q, k, v, kv_len)
+    delta = (do.float() * o.float()).sum(-1)
+    first = _kernels.flash_attn_bwd_dkv(q, k, v, do, lse, delta, kv_len)
+    second = _kernels.flash_attn_bwd_dkv(q, k, v, do, lse, delta, kv_len)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.gpu
