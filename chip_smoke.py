@@ -8,7 +8,8 @@ Phases, each of which fails the script with a non-zero exit:
 1. card: a CUDA device must be present; prints its name and power limit;
 2. build: compiles every kernel source of
    ``scl_deepfake_audio_detection_torch/csrc`` with nvcc, one process per
-   source, all at once, and prints the ``-Xptxas -v`` reports;
+   source, all at once, and prints the ``-Xptxas -v`` reports; fails if
+   ptxas serialized the ``wgmma`` of a kernel (its warning C7513);
 3. kernels vs plain: the flash-attention forward (O and LSE) and the two
    backward kernels (dq, dk, dv) against their plain PyTorch versions at
    [2, 16, T, 64], T in {199, 201, 1024}, kv_len in {None, T-13}, bf16 and
@@ -211,6 +212,9 @@ def phase_build(K):
         if rec["path"] not in shown:
             shown.add(rec["path"])
             print(rec["log"].strip())
+        # ptxas serialized the wgmmas of a kernel in this source
+        if "C7513" in rec["log"]:
+            raise AssertionError(f"{name}: ptxas reports C7513 (serialized wgmma)")
 
 
 def phase_kernel_vs_plain(K, A):

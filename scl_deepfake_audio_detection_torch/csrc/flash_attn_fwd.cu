@@ -14,16 +14,17 @@
 //
 // Two bodies, one contract:
 // - bf16 (the eval and training paths), designed for Hopper:
-//   * one block per (batch*head, NW * 64 q rows), NW consumer warpgroups of
-//     64 q rows each.  NW = 2 (FLASH_FWD_WARPGROUPS) measured faster than
-//     one block of 4 per head at both main-path shapes
-//     (scripts/time_flash_fwd_variants.py, PERF.md);
+//   * one block per (batch*head, 128 q rows), two consumer warpgroups of
+//     64 q rows each (measured faster than one block of 4 warpgroups per
+//     head at both main-path shapes, PERF.md);
 //   * K and V arrive by TMA (csrc/hopper.cuh) in 64-key tiles into a ring
 //     of STAGES = 4 slots, one mbarrier per slot.  A head of T <= 256 has at
 //     most 4 key tiles, so its whole K and V are loaded once, up front, and
-//     every q tile of the block is computed from that one copy; longer
-//     heads stream through the ring, each slot refilled once all the
-//     block's warpgroups have released it;
+//     every q tile is computed from that one copy: at 128 < T <= 256 the
+//     head's two blocks form a cluster, and each key tile is read from
+//     device memory once and multicast into both (K issued by the first
+//     block, V by the second).  Longer heads stream through the ring, each
+//     slot refilled once all the block's warpgroups have released it;
 //   * TMA zero-fills the rows past kv_len (the K/V maps end there) and past
 //     T, and the columns past D, so loads need no masking; keys >= kv_len
 //     are masked to -inf in registers;
@@ -229,13 +230,9 @@ cudaError_t launch_f32(const float* q, const float* k, const float* v, float* o,
 
 typedef __nv_bfloat16 bf16;
 
-#ifndef FLASH_FWD_WARPGROUPS
-#define FLASH_FWD_WARPGROUPS 2
-#endif
-constexpr int NW = FLASH_FWD_WARPGROUPS;  // consumer warpgroups per block
-constexpr int STAGES = 4;                 // K/V tiles held at once
+constexpr int NW = 2;      // consumer warpgroups per block
+constexpr int STAGES = 4;  // K/V tiles held at once
 constexpr float LOG2E = 1.4426950408889634f;
-static_assert(NW == 2 || NW == 4, "a block holds 2 or 4 warpgroups");
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x in the low half
@@ -250,13 +247,14 @@ constexpr size_t fwd_smem_bytes() {
 }
 
 // DP = D rounded up to 16 (the depth of Q K^T); the padding columns are zero.
+// `pair` is 1 when the launch makes a head's two blocks one cluster.
 template <int DP>
-__global__ void __launch_bounds__(NW * 128, DP <= 64 ? 4 / NW : 1)
+__global__ void __launch_bounds__(NW * 128, DP <= 64 ? 2 : 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap,
                       const __grid_constant__ CUtensorMap omap,
-                      float* __restrict__ lse, int t, int d, int n_kv) {
+                      float* __restrict__ lse, int t, int d, int n_kv, int pair) {
   using namespace hopper;
   constexpr int NC = (DP + 63) / 64;   // 64-column chunks of a tile
   constexpr int TILE = NC * TILE_BYTES;  // one 64-row tile over the whole depth
@@ -283,15 +281,22 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     }
     mbar_fence_init();
   }
-  __syncthreads();
+  cluster_sync();  // a pair's barriers are ready before either block multicasts
   if (tid == 0) {
     mbar_expect_tx(&q_full, NW * TILE);
     for (int w = 0; w < NW; ++w)
       tma_load_rows<NC>(qs + w * TILE, &qmap, &q_full, row0 + 64 * w, bh);
     for (int i = 0; i < min(n_kt, STAGES); ++i) {
       mbar_expect_tx(&kv_full[i], 2 * TILE);
-      tma_load_rows<NC>(ks + i * TILE, &kmap, &kv_full[i], 64 * i, bh);
-      tma_load_rows<NC>(vs + i * TILE, &vmap, &kv_full[i], 64 * i, bh);
+      if (pair) {  // n_kt <= STAGES: nothing is refilled
+        if (blockIdx.x == 0)
+          tma_load_rows<NC>(ks + i * TILE, &kmap, &kv_full[i], 64 * i, bh, 0b11);
+        else
+          tma_load_rows<NC>(vs + i * TILE, &vmap, &kv_full[i], 64 * i, bh, 0b11);
+      } else {
+        tma_load_rows<NC>(ks + i * TILE, &kmap, &kv_full[i], 64 * i, bh);
+        tma_load_rows<NC>(vs + i * TILE, &vmap, &kv_full[i], 64 * i, bh);
+      }
     }
   }
 
@@ -452,6 +457,7 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     if (r0 < t) lse[(size_t)bh * t + r0] = m0 + logf(l0);
     if (r0 + 8 < t) lse[(size_t)bh * t + r0 + 8] = m1 + logf(l1);
   }
+  if (pair) cluster_sync();  // neither block leaves while its multicast may run
 }
 
 template <int DP>
@@ -466,10 +472,22 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   constexpr size_t smem = fwd_smem_bytes<DP>();
   const cudaError_t err = hopper::allow_smem<flash_fwd_bf16_kernel<DP>>(smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((t + NW * 64 - 1) / (NW * 64), bh);
-  flash_fwd_bf16_kernel<DP><<<grid, NW * 128, smem, stream>>>(qmap, kmap, vmap, omap, lse, t,
-                                                              d, n_kv);
-  return cudaGetLastError();
+  const int blocks = (t + NW * 64 - 1) / (NW * 64);
+  const int pair = blocks == 2;  // 128 < T <= 256: one K/V load for both blocks
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = pair ? 2 : 1;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(blocks, bh);
+  cfg.blockDim = dim3(NW * 128);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, flash_fwd_bf16_kernel<DP>, qmap, kmap, vmap, omap, lse, t, d,
+                            n_kv, pair);
 }
 
 #define FLASH_ARGS q, k, v, o, lse, bh, t, d, kv_len, stream
