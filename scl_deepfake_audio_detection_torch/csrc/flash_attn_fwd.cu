@@ -19,12 +19,12 @@
 //     head at both main-path shapes, PERF.md);
 //   * K and V arrive by TMA (csrc/hopper.cuh) in 64-key tiles into a ring
 //     of STAGES = 4 slots, one mbarrier per slot.  A head of T <= 256 has at
-//     most 4 key tiles, so its whole K and V are loaded once, up front, and
-//     every q tile is computed from that one copy: at 128 < T <= 256 the
-//     head's two blocks form a cluster, and each key tile is read from
-//     device memory once and multicast into both (K issued by the first
-//     block, V by the second).  Longer heads stream through the ring, each
-//     slot refilled once all the block's warpgroups have released it;
+//     most 4 key tiles, so each block loads its head's whole K and V once,
+//     up front, and computes its q tiles from that one copy (at
+//     128 < T <= 256 a head has two blocks, so two loads: one cluster of
+//     the two with K/V multicast into both measured slower, PERF.md).
+//     Longer heads stream through the ring, each slot refilled once all the
+//     block's warpgroups have released it;
 //   * TMA zero-fills the rows past kv_len (the K/V maps end there) and past
 //     T, and the columns past D, so loads need no masking; keys >= kv_len
 //     are masked to -inf in registers;
@@ -247,14 +247,13 @@ constexpr size_t fwd_smem_bytes() {
 }
 
 // DP = D rounded up to 16 (the depth of Q K^T); the padding columns are zero.
-// `pair` is 1 when the launch makes a head's two blocks one cluster.
 template <int DP>
 __global__ void __launch_bounds__(NW * 128, DP <= 64 ? 2 : 1)
 flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
                       const __grid_constant__ CUtensorMap kmap,
                       const __grid_constant__ CUtensorMap vmap,
                       const __grid_constant__ CUtensorMap omap,
-                      float* __restrict__ lse, int t, int d, int n_kv, int pair) {
+                      float* __restrict__ lse, int t, int d, int n_kv) {
   using namespace hopper;
   constexpr int NC = (DP + 63) / 64;   // 64-column chunks of a tile
   constexpr int TILE = NC * TILE_BYTES;  // one 64-row tile over the whole depth
@@ -281,22 +280,15 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     }
     mbar_fence_init();
   }
-  cluster_sync();  // a pair's barriers are ready before either block multicasts
+  __syncthreads();
   if (tid == 0) {
     mbar_expect_tx(&q_full, NW * TILE);
     for (int w = 0; w < NW; ++w)
       tma_load_rows<NC>(qs + w * TILE, &qmap, &q_full, row0 + 64 * w, bh);
     for (int i = 0; i < min(n_kt, STAGES); ++i) {
       mbar_expect_tx(&kv_full[i], 2 * TILE);
-      if (pair) {  // n_kt <= STAGES: nothing is refilled
-        if (blockIdx.x == 0)
-          tma_load_rows<NC>(ks + i * TILE, &kmap, &kv_full[i], 64 * i, bh, 0b11);
-        else
-          tma_load_rows<NC>(vs + i * TILE, &vmap, &kv_full[i], 64 * i, bh, 0b11);
-      } else {
-        tma_load_rows<NC>(ks + i * TILE, &kmap, &kv_full[i], 64 * i, bh);
-        tma_load_rows<NC>(vs + i * TILE, &vmap, &kv_full[i], 64 * i, bh);
-      }
+      tma_load_rows<NC>(ks + i * TILE, &kmap, &kv_full[i], 64 * i, bh);
+      tma_load_rows<NC>(vs + i * TILE, &vmap, &kv_full[i], 64 * i, bh);
     }
   }
 
@@ -457,7 +449,6 @@ flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
     if (r0 < t) lse[(size_t)bh * t + r0] = m0 + logf(l0);
     if (r0 + 8 < t) lse[(size_t)bh * t + r0 + 8] = m1 + logf(l1);
   }
-  if (pair) cluster_sync();  // neither block leaves while its multicast may run
 }
 
 template <int DP>
@@ -472,22 +463,10 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
   constexpr size_t smem = fwd_smem_bytes<DP>();
   const cudaError_t err = hopper::allow_smem<flash_fwd_bf16_kernel<DP>>(smem);
   if (err != cudaSuccess) return err;
-  const int blocks = (t + NW * 64 - 1) / (NW * 64);
-  const int pair = blocks == 2;  // 128 < T <= 256: one K/V load for both blocks
-  cudaLaunchAttribute cluster;
-  cluster.id = cudaLaunchAttributeClusterDimension;
-  cluster.val.clusterDim.x = pair ? 2 : 1;
-  cluster.val.clusterDim.y = 1;
-  cluster.val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(blocks, bh);
-  cfg.blockDim = dim3(NW * 128);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cfg.attrs = &cluster;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, flash_fwd_bf16_kernel<DP>, qmap, kmap, vmap, omap, lse, t, d,
-                            n_kv, pair);
+  const dim3 grid((t + NW * 64 - 1) / (NW * 64), bh);
+  flash_fwd_bf16_kernel<DP><<<grid, NW * 128, smem, stream>>>(qmap, kmap, vmap, omap, lse, t,
+                                                              d, n_kv);
+  return cudaGetLastError();
 }
 
 #define FLASH_ARGS q, k, v, o, lse, bh, t, d, kv_len, stream

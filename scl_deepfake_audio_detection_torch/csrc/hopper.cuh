@@ -103,42 +103,12 @@ __device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void*
       : "memory");
 }
 
-// As tma_load_3d, into the same shared-memory offsets of every block of the
-// cluster named in `cta_mask`; each of them gets the bytes announced on its
-// own mbarrier at `bar`'s offset.
-__device__ __forceinline__ void tma_load_3d_multicast(void* dst, const CUtensorMap* map,
-                                                      uint64_t* bar, uint16_t cta_mask, int c0,
-                                                      int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%4, %5, %6}], [%2], %3;\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(cta_mask), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-// Rows [r0, r0 + 64) of head `bh` of a [BH, T, D] map into NC chunk tiles;
-// with a non-zero `cta_mask`, into those of every block of the cluster it
-// names.
+// Rows [r0, r0 + 64) of head `bh` of a [BH, T, D] map into NC chunk tiles.
 template <int NC>
 __device__ __forceinline__ void tma_load_rows(uint8_t* dst, const CUtensorMap* map,
-                                              uint64_t* bar, int r0, int bh,
-                                              uint16_t cta_mask = 0) {
+                                              uint64_t* bar, int r0, int bh) {
 #pragma unroll
-  for (int c = 0; c < NC; ++c) {
-    if (cta_mask)
-      tma_load_3d_multicast(dst + c * TILE_BYTES, map, bar, cta_mask, 64 * c, r0, bh);
-    else
-      tma_load_3d(dst + c * TILE_BYTES, map, bar, 64 * c, r0, bh);
-  }
-}
-
-// Barrier over every thread of every block of the cluster (a launch without
-// clusters is a cluster of one block); it also orders shared-memory writes
-// before it, mbarrier initialisation included, for the other blocks.
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+  for (int c = 0; c < NC; ++c) tma_load_3d(dst + c * TILE_BYTES, map, bar, 64 * c, r0, bh);
 }
 
 // NC chunk tiles out to rows [r0, r0 + 64) of head `bh`; TMA drops the rows

@@ -20,9 +20,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (3e-2, 1e-4)}
 # (T, kv_len): the main path's lengths, one and a long one, and the seams of
 # the bf16 kernels' design: a 64-row TMA box edge (63, 64, 65), the
-# forward's switch from one block per head to a cluster of two that share
-# one K/V load (128, 129), and its switch from K/V held whole (T <= 256) to
-# K/V streamed (257)
+# forward's switch from one block per head to two (128, 129), and its
+# switch from K/V held whole (T <= 256) to K/V streamed (257)
 SEQS = [(1, None), (63, None), (64, None), (65, 60), (128, None), (129, 120),
         (199, None), (201, 188), (256, None), (257, 250), (1024, 1011)]
 
