@@ -11,7 +11,9 @@ Phases, each of which fails the script with a non-zero exit:
    source, all at once, and prints the ``-Xptxas -v`` reports; fails if
    ptxas serialized the ``wgmma`` of a kernel (its warning C7513);
 3. kernels vs plain: the flash-attention forward (O and LSE) and the two
-   backward kernels (dq, dk, dv) against their plain PyTorch versions at
+   backward kernels (dq and D = rowsum(dO * O) from the dq kernel, dk and
+   dv from the dk/dv kernel fed that D) against their plain PyTorch
+   versions at
    [2, 16, T, 64], T in {199, 201, 1024}, kv_len in {None, T-13}, bf16 and
    fp32, within stated tolerances; dk and dv rows at keys >= kv_len must be
    exactly 0; autograd through ``self_attention`` against autograd through
@@ -35,13 +37,16 @@ Phases, each of which fails the script with a non-zero exit:
    (``F.scaled_dot_product_attention`` pinned to its flash backend, timed
    the same way; its backward for the backward kernels; the port never
    calls it), each kernel's bound, eval utt/s, ms per train step and peak
-   memory.
+   memory.  The dq kernel's time includes its D; torch's D alone
+   (``(dO.float() * O.float()).sum(-1)``) is timed beside it.
 
 ``python3 chip_smoke.py --before DIR`` also builds the kernels of another
 checkout of the repo at DIR (an earlier commit, unpacked with ``git
 archive``) and times them on the same inputs, in turns with this tree's
 (before, now, now, before); each entry's ``ms_before`` holds that time, and
-is null without ``--before``.
+is null without ``--before``.  Where the earlier dq kernel took D as an
+input, its ``ms_before`` is that kernel and torch's D as one graphed
+callable, so that both times cover the same work.
 
 The JSON object with one entry per kernel comes two lines before the last
 (launches counted on the training path, with each path's counts under
@@ -89,6 +94,16 @@ TOL = {torch.float32: {"o": 2e-5, "lse": 1e-5},
 # tolerance for gradients that are zero up to rounding (T = 1).
 TOL_BWD = {torch.float32: lambda ref: 2e-5,
            torch.bfloat16: lambda ref: 2e-5 + 2.0 ** -7 * ref.abs().max().item()}
+
+
+def tol_delta(o, do):
+    """D = rowsum(dO * O), the dq kernel's fp32 sum against torch's over the
+    same products in another order.  A sum of n terms in fp32 is off by at
+    most about n 2^-24 times the sum of their magnitudes; 1e-5 of the
+    largest row's sum of |dO * O| covers n up to 128 (the largest head
+    dimension) with room to spare."""
+    return 1e-5 * (do.float() * o.float()).abs().sum(-1).max().item()
+
 # Autograd through the kernels vs autograd through attention_reference: in
 # bf16 the reference rounds P after normalising and rounds dP to bf16 in the
 # cast's backward, where the kernels keep dP in fp32: 4 bf16 ulps of max |g|.
@@ -433,17 +448,23 @@ def _bwd_inputs(shape, dtype, g):
 
 
 def _bwd_check(K, A, q, k, v, do, kv_len):
-    """Both backward kernels against their plain versions on one input;
-    returns {kernel: its worst error} and fails on a tolerance or on a
-    non-zero dk/dv row past kv_len."""
+    """Both backward kernels against their plain versions on one input: dq
+    and D from the dq kernel, dk and dv from the dk/dv kernel fed that D.
+    Returns ({kernel: its worst error}, message, D's error) and fails on a
+    tolerance or on a non-zero dk/dv row past kv_len."""
     o, lse = K.flash_attn_fwd(q, k, v, kv_len)
-    delta = (do.float() * o.float()).sum(-1)
-    got = (K.flash_attn_bwd_dq(q, k, v, do, lse, delta, kv_len),
-           *K.flash_attn_bwd_dkv(q, k, v, do, lse, delta, kv_len))
+    dq, delta = K.flash_attn_bwd_dq(q, k, v, o, do, lse, kv_len)
+    got = (dq, *K.flash_attn_bwd_dkv(q, k, v, do, lse, delta, kv_len))
     torch.cuda.synchronize()
-    want = (A.flash_bwd_dq_reference(q, k, v, do, lse, delta, kv_len),
-            *A.flash_bwd_dkv_reference(q, k, v, do, lse, delta, kv_len))
-    errs, msgs = {}, []
+    want_dq, want_delta = A.flash_bwd_dq_delta_reference(q, k, v, o, do, lse, kv_len)
+    want = (want_dq, *A.flash_bwd_dkv_reference(q, k, v, do, lse, want_delta, kv_len))
+    err_delta = (delta - want_delta).abs().max().item()
+    tol = tol_delta(o, do)
+    msgs = [f"D {err_delta:.3e} (tol {tol:.1e})"]
+    if err_delta > tol:
+        raise AssertionError(f"D from the dq kernel disagrees with torch's ({q.dtype}, "
+                             f"{tuple(q.shape)}, kv_len={kv_len})")
+    errs = {}
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         err = (a.float() - b.float()).abs().max().item()
         tol = TOL_BWD[q.dtype](b.float())
@@ -459,7 +480,7 @@ def _bwd_check(K, A, q, k, v, do, kv_len):
         if dead != 0.0:
             raise AssertionError("dk/dv rows past kv_len are not exactly 0")
     worst = {"flash_attn_bwd_dq": errs["dq"], "flash_attn_bwd_dkv": max(errs["dk"], errs["dv"])}
-    return worst, "  ".join(msgs) + f"  |dk, dv past kv_len| {dead}"
+    return worst, "  ".join(msgs) + f"  |dk, dv past kv_len| {dead}", err_delta
 
 
 def phase_backward_vs_plain(K, A):
@@ -468,7 +489,7 @@ def phase_backward_vs_plain(K, A):
         for t in (199, 201, 1024):
             for kv_len in (None, t - 13):
                 inputs = _bwd_inputs((2, 16, t, 64), dtype, g)
-                _, msg = _bwd_check(K, A, *inputs, kv_len)
+                _, msg, _ = _bwd_check(K, A, *inputs, kv_len)
                 print(f"[backward] {str(dtype):15s} T={t:5d} kv_len={kv_len!s:5s} {msg}  ok")
 
 
@@ -663,17 +684,18 @@ def _bound(nbytes, flops):
 def phase_backward_times(K, A, card, KB=None):
     """Each backward kernel at the train shape against its plain version,
     the sdpa backward and its bound (the forward's entry at that shape
-    too); with ``KB``, the earlier build's kernels too."""
+    too); with ``KB``, the earlier build's kernels too.  The dq kernel is
+    timed with its D; torch's D is timed alone beside it."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     g = torch.Generator(device="cuda").manual_seed(5)
     out = {"flash_attn_fwd": _fwd_entry(K, A, TRAIN_SHAPE, card, g, KB)}
     q, k, v, do = _bwd_inputs(TRAIN_SHAPE, torch.bfloat16, g)
-    err, msg = _bwd_check(K, A, q, k, v, do, None)
+    err, msg, err_delta = _bwd_check(K, A, q, k, v, do, None)
     print(f"[backward] train shape {list(TRAIN_SHAPE)} bf16: {msg}")
     o, lse = K.flash_attn_fwd(q, k, v)
-    delta = (do.float() * o.float()).sum(-1)
+    _, delta = K.flash_attn_bwd_dq(q, k, v, o, do, lse)
     qr, kr, vr = (a.clone().requires_grad_() for a in (q, k, v))
     # the yardstick pinned to sdpa's flash backend, graphed, best of two runs
     with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
@@ -687,19 +709,38 @@ def phase_backward_times(K, A, card, KB=None):
         sdpa_f = min(graph_ms(fwd) for _ in range(2))
         sdpa_fb = min(graph_ms(fwd_bwd) for _ in range(2))
     lib = sdpa_fb - sdpa_f
+    # torch's D, as the port computed it before the dq kernel did: four eager
+    # launches (two casts, the product, the sum)
+    d_graph = min(graph_ms(lambda: A._delta(o, do)) for _ in range(2))
+    d_eager = cuda_ms(lambda: A._delta(o, do))
+    print(f"[times] {card}: torch D = (dO.float() * O.float()).sum(-1) at "
+          f"{list(TRAIN_SHAPE)} bf16 (the port's D before the dq kernel computed it): "
+          f"{d_graph:.4f} ms graphed (eager {d_eager:.4f} ms)")
     b, h, t, d = TRAIN_SHAPE
     n = q.numel() * q.element_size()
     stats = 2 * b * h * t * 4  # L and D, fp32
-    for name, plain, nbytes, flops in (
-            ("flash_attn_bwd_dq", A.flash_bwd_dq_reference,
-             5 * n + stats, 6 * b * h * t * t * d),
-            ("flash_attn_bwd_dkv", A.flash_bwd_dkv_reference,
-             6 * n + stats, 8 * b * h * t * t * d)):
-        args = (q, k, v, do, lse, delta)
-        p1 = cuda_ms(lambda: plain(*args))
-        times = time_kernel(lambda: getattr(K, name)(*args),
-                            KB and (lambda: getattr(KB, name)(*args)))
-        p2 = cuda_ms(lambda: plain(*args))
+    before_dq = None
+    if KB and len(KB.ARGTYPES["flash_attn_bwd_dq"]) == len(K.ARGTYPES["flash_attn_bwd_dq"]):
+        def before_dq():
+            return KB.flash_attn_bwd_dq(q, k, v, o, do, lse)
+    elif KB:
+        # the earlier dq kernel took D as an input: time it with torch's D
+        def before_dq():
+            return KB.flash_attn_bwd_dq(q, k, v, do, lse, A._delta(o, do))
+    runs = (
+        # dq reads q, dO, O, K, V, L and writes dq and D
+        ("flash_attn_bwd_dq", lambda: A.flash_bwd_dq_delta_reference(q, k, v, o, do, lse),
+         lambda: K.flash_attn_bwd_dq(q, k, v, o, do, lse), before_dq,
+         6 * n + stats, 6 * b * h * t * t * d),
+        # dk/dv reads q, dO, K, V, L, D and writes dK and dV
+        ("flash_attn_bwd_dkv", lambda: A.flash_bwd_dkv_reference(q, k, v, do, lse, delta),
+         lambda: K.flash_attn_bwd_dkv(q, k, v, do, lse, delta),
+         KB and (lambda: KB.flash_attn_bwd_dkv(q, k, v, do, lse, delta)),
+         6 * n + stats, 8 * b * h * t * t * d))
+    for name, plain, kern, before, nbytes, flops in runs:
+        p1 = cuda_ms(plain)
+        times = time_kernel(kern, before)
+        p2 = cuda_ms(plain)
         bound, by, detail = _bound(nbytes, flops)
         print(f"[times] {card}: {name} {list(TRAIN_SHAPE)} bf16: {timing_line(times)}, "
               f"plain {p1:.4f}/{p2:.4f} ms, sdpa backward (dq, dk, dv together) "
@@ -707,6 +748,8 @@ def phase_backward_times(K, A, card, KB=None):
         out[name] = {"shape": list(TRAIN_SHAPE), "max_abs_err": err[name], **times,
                      "plain_ms": min(p1, p2), "bound_ms": bound, "bound_by": by,
                      "library_ms": lib}
+    out["flash_attn_bwd_dq"].update(delta_max_abs_err=err_delta, torch_delta_ms=d_graph,
+                                    torch_delta_eager_ms=d_eager)
     print(f"[times] {card}: at the train shape, sdpa (flash backend, graphed, best of 2) "
           f"forward {sdpa_f:.4f} ms, forward + backward {sdpa_fb:.4f} ms; eager "
           f"{eager_f:.4f} and {eager_fb:.4f} ms")

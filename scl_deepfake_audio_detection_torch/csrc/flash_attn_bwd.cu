@@ -4,40 +4,38 @@
 // dv are deterministic:
 // - flash_attn_bwd_dq replaces `_flash_bwd_dq_kernel` (launched by
 //   `_flash_backward`, scl_deepfake_audio_detection_tpu/ops/attention.py):
-//   one block per (batch*head, 64-row q tile) streams 64-key K/V tiles;
-//   P = exp(S - L), dP = dO V^T, dS = P * (dP - D) rounded to K's dtype,
-//   dq = dS K with fp32 accumulation.
+//   one block per (batch*head, 64-row q tile) first sums D = rowsum(dO * O)
+//   in fp32 from its dO and O tiles and writes it out, then streams 64-key
+//   K/V tiles; P = exp(S - L), dP = dO V^T, dS = P * (dP - D) rounded to K's
+//   dtype, dq = dS K with fp32 accumulation.
 // - flash_attn_bwd_dkv replaces `_flash_bwd_dkv_kernel` (same launcher):
 //   one block per (batch*head, 64-key tile) streams 64-row q/dO tiles in the
 //   transposed frame; P^T = exp(S^T - L), dV = P^T dO (P^T in dO's dtype),
 //   dP^T = V dO^T, dS^T = P^T * (dP^T - D) in q's dtype, dK = dS^T Q.
-// L is the forward's per-row logsumexp and D = rowsum(dO * O) in fp32; the
-// caller computes D (an elementwise product and a reduction, which XLA also
-// ran outside the Pallas kernels).
+// L is the forward's per-row logsumexp.  dk/dv reads the D that dq wrote, so
+// it is launched after dq on the same stream.  (The JAX package computed D
+// outside its kernels and left the product and reduction to XLA to fuse;
+// eager PyTorch would run them as four launches of their own.)
 //
 // Bound on an H100 SXM (3.35 TB/s, 989 TFLOP/s bf16) at the XLS-R 300M train
-// shape [22 * 16, 199, 64] bf16: dq reads q, dO, K, V, L, D and writes dq
-// (45.4 MB, 13.6 us) for 6 * BH * T^2 * D = 5.35 GFLOP (5.4 us); dkv reads
-// q, dO, K, V, L, D and writes dK, dV (54.4 MB, 16.2 us) for 8 * BH * T^2 * D
-// = 7.14 GFLOP (7.2 us).  Both are memory-bound.  S, P and dS never leave
-// the chip, and every input tile leaves device memory once per block that
-// streams it.
+// shape [22 * 16, 199, 64] bf16: dq reads q, dO, O, K, V, L and writes dq
+// and D (54.4 MB, 16.2 us) for 6 * BH * T^2 * D = 5.35 GFLOP (5.4 us); dkv
+// reads q, dO, K, V, L, D and writes dK, dV (54.4 MB, 16.2 us) for
+// 8 * BH * T^2 * D = 7.14 GFLOP (7.2 us).  Both are memory-bound.  S, P and
+// dS never leave the chip, and every input tile leaves device memory once
+// per block that streams it.
 //
 // Two bodies, one contract (as csrc/flash_attn_fwd.cu):
-// - bf16 (the training path).  In both kernels the S and dP accumulators
-//   have the layout of the A operand of the next product, so P and dS are
-//   rounded to bf16 in registers and never staged.
-//   * dq: mma.sync m16n8k16 with fp32 accumulation, four warps of 16 rows,
-//     synchronous staging; the B operand of dq = dS K, needed down the K
-//     tile's columns, is gathered two bf16 values at a time from shared
-//     memory (ldmatrix, TMA and wgmma are later work).
-//   * dk/dv: TMA staging into a ring and wgmma for all four products, with
-//     the column operands read as MN-major wgmma operands (see
-//     bwd_dkv_bf16_kernel).
+// - bf16 (the training path), both kernels designed for Hopper: TMA staging
+//   into a ring, wgmma for every product with the S and dP accumulators
+//   rounded to bf16 in registers as the register operand of the next
+//   product, and the operands needed down a tile's columns read as MN-major
+//   wgmma operands straight from their TMA tiles (see bwd_dq_bf16_kernel
+//   and bwd_dkv_bf16_kernel).
 // - fp32 (the golden checks and tests): scalar FMA from shared memory.
 //
-// Layout: q, k, v, dout, dq, dk, dv are [BH, T, D] contiguous; lse and delta
-// are [BH, T] fp32.  The kernels mask q rows >= T and keys >= kv_len
+// Layout: q, k, v, o, dout, dq, dk, dv are [BH, T, D] contiguous; lse and
+// delta are [BH, T] fp32.  The kernels mask q rows >= T and keys >= kv_len
 // themselves; the caller pads nothing.  Rows of dK and dV at keys >= kv_len
 // are written as exact zeros.  D is a multiple of 8 up to 128; bf16 pointers
 // are 16-byte aligned (the wrapper checks both).
@@ -77,14 +75,15 @@ __device__ __forceinline__ void stage_f32(float* __restrict__ dst,
 template <int NJ>
 __global__ void __launch_bounds__(NT)
 bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ dout,
-                  const float* __restrict__ lse, const float* __restrict__ delta,
-                  float* __restrict__ dq, int t, int d, int kv_len) {
+                  const float* __restrict__ v, const float* __restrict__ o,
+                  const float* __restrict__ dout, const float* __restrict__ lse,
+                  float* __restrict__ delta, float* __restrict__ dq, int t, int d,
+                  int kv_len) {
   extern __shared__ float smem[];
   const int dp = d + 1;
   float* qs = smem;                  // [BQ][dp]
   float* gs = qs + BQ * dp;          // [BQ][dp] dO
-  float* ks = gs + BQ * dp;          // [BK][dp]
+  float* ks = gs + BQ * dp;          // [BK][dp]; O until D is summed
   float* vs = ks + BK * dp;          // [BK][dp]
   float* ps = vs + BK * dp;          // [BQ][BK + 1] dS
   float* l_s = ps + BQ * (BK + 1);   // [BQ] L (+inf past T)
@@ -98,10 +97,16 @@ bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   stage_f32(qs, q + base, q0, t, d, tid);
   stage_f32(gs, dout + base, q0, t, d, tid);
+  stage_f32(ks, o + base, q0, t, d, tid);
+  if (tid < BQ) l_s[tid] = q0 + tid < t ? lse[sbase + q0 + tid] : INFINITY;
+  __syncthreads();
+  // D = rowsum(dO * O), one row a thread, out to global memory for dk/dv
   if (tid < BQ) {
+    float sum = 0.f;
+    for (int c = 0; c < d; ++c) sum = fmaf(gs[tid * dp + c], ks[tid * dp + c], sum);
     const bool live = q0 + tid < t;
-    l_s[tid] = live ? lse[sbase + q0 + tid] : INFINITY;
-    d_s[tid] = live ? delta[sbase + q0 + tid] : 0.f;
+    d_s[tid] = live ? sum : 0.f;
+    if (live) delta[sbase + q0 + tid] = sum;
   }
 
   float acc[RPT][NJ];
@@ -111,7 +116,7 @@ bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.f;
 
   for (int k0 = 0; k0 < n_kv; k0 += BK) {
-    __syncthreads();  // q, dO and stats staged; the previous dS and K consumed
+    __syncthreads();  // L and D stored, O summed; the previous dS and K consumed
     stage_f32(ks, k + base, k0, n_kv, d, tid);
     stage_f32(vs, v + base, k0, n_kv, d, tid);
     __syncthreads();
@@ -316,184 +321,236 @@ bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 constexpr int MR = 64;   // rows of the block's own tile: 4 warps x 16 rows
 constexpr int MS = 64;   // rows of each streamed tile
-constexpr int MT = 128;  // threads per block
+constexpr int MT = 128;  // threads per block: one warpgroup
+constexpr float LOG2E = 1.4426950408889634f;
 typedef __nv_bfloat16 bf16;
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two bf16 values one column apart in consecutive rows: lo in the low half.
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  return (uint32_t)__bfloat16_as_ushort(lo) | ((uint32_t)__bfloat16_as_ushort(hi) << 16);
-}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x in the low half
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// c += a (16x16, row-major fragment) * b (16x8, column-major fragment), fp32 sum.
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Rows [r0, r0 + 64) of a [nrows, d] matrix into dst [64][DP + 8], 16 bytes a
-// thread; rows >= nrows and columns >= d are zero.
-template <int DP>
-__device__ __forceinline__ void stage_tile(bf16* __restrict__ dst,
-                                           const bf16* __restrict__ src,
-                                           int r0, int nrows, int d, int tid) {
-  constexpr int C8 = DP / 8;
-  for (int i = tid; i < 64 * C8; i += MT) {
-    const int r = i / C8, c = (i % C8) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < nrows && c < d)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * d + c);
-    *reinterpret_cast<uint4*>(dst + r * (DP + 8) + c) = val;
+// acc + the dot product of 8 bf16 values at a with 8 at b (16 bytes each, in
+// shared memory), in fp32: each product of two bf16 values is exact in fp32.
+__device__ __forceinline__ float dot8(const uint8_t* a, const uint8_t* b, float acc) {
+  const uint4 x = *reinterpret_cast<const uint4*>(a);
+  const uint4 y = *reinterpret_cast<const uint4*>(b);
+  const uint32_t xs[4] = {x.x, x.y, x.z, x.w}, ys[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fx = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&xs[i]));
+    const float2 fy = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&ys[i]));
+    acc = fmaf(fx.x, fy.x, acc);
+    acc = fmaf(fx.y, fy.y, acc);
   }
+  return acc;
 }
 
-// A fragments of rows [16 warp, 16 warp + 16) of a staged tile, over the
-// whole depth DP.
+// dq, designed for Hopper, with D = rowsum(dO * O) computed on the way.  One
+// warpgroup per (batch*head, 64-row q tile), no atomics.
+// - Copies: the block's q, dO and O tiles arrive once by TMA; the head's K
+//   and V tiles stream through a ring of DQ_STAGES slots by TMA, so tile
+//   j + 1 is in flight while tile j is multiplied.  O is needed only for D,
+//   so it lands in slot 1's K tile, and tile 1 follows once D is summed:
+//   six tiles of shared memory instead of seven fit four blocks on an SM at
+//   D <= 64 instead of three (9 % faster at the train shape, PERF.md).  L
+//   (fp32 rows of T values, not 16-byte aligned per head as TMA needs)
+//   comes by plain loads.
+// - D: each thread owns rows g and g + 8 of its warp, as the wgmma
+//   accumulators lay them out; it sums dO * O in fp32 over every fourth
+//   16-byte chunk of those rows in the swizzled tiles, and its quad adds the
+//   four partial sums.  D stays in registers for the thread's dS and goes
+//   out to global memory for dk/dv.
+// - Products, all wgmma: S = q K^T and dP = dO V^T with both operands in
+//   shared memory (q, K, dO, V all K-major), committed as two groups, so
+//   P = exp(S - L) is computed while dP is still on the tensor cores (5 %
+//   faster, PERF.md; `pin` holds S and dP in place across the waits); dq +=
+//   dS K with dS rounded to bf16 in registers from the accumulators and K
+//   read as an MN-major operand straight from its TMA tile, so no operand
+//   is gathered column by column.
+// - Masking: rows past T take L = +inf (P = 0) and D = 0, never TMA's zero
+//   fill of L; keys >= kv_len take P = 0; n8 blocks and k16 steps that hold
+//   only dead keys are skipped, and a warp whose 16 rows all lie past T
+//   takes no exponentials.  dq leaves through the q tile (free after the
+//   last S) and a TMA store, which drops the rows past T and columns past D.
+constexpr int DQ_STAGES = 2;
+
 template <int DP>
-__device__ __forceinline__ void load_a(uint32_t (&f)[DP / 16][4], const bf16* tile,
-                                       int warp, int g, int c) {
-  constexpr int KS = DP + 8;
-  const bf16* row = tile + (warp * 16 + g) * KS + 2 * c;
-#pragma unroll
-  for (int kk = 0; kk < DP / 16; ++kk) {
-    f[kk][0] = ld32(row + kk * 16);
-    f[kk][1] = ld32(row + 8 * KS + kk * 16);
-    f[kk][2] = ld32(row + kk * 16 + 8);
-    f[kk][3] = ld32(row + 8 * KS + kk * 16 + 8);
-  }
+constexpr size_t dq_smem_bytes() {
+  // q and dO tiles, then per slot a K and a V tile (O in slot 1's K tile)
+  return (size_t)(2 + 2 * DQ_STAGES) * ((DP + 63) / 64) * hopper::TILE_BYTES + 1024;
 }
 
-// acc [16 x DP] += a (16 x 64, A fragments per 16-row k-step) * tile (a
-// staged [64][DP + 8] tile read as the 64 x DP B operand).  B is needed
-// down the tile's columns, so each register gathers two rows of one column.
+// D <= 64 fits four blocks on an SM (at most 128 registers a thread).
 template <int DP>
-__device__ __forceinline__ void mma_a_tile(float (&acc)[DP / 8][4],
-                                           const uint32_t (&a)[MS / 16][4],
-                                           const bf16* tile, int g, int c) {
-  constexpr int KS = DP + 8;
-#pragma unroll
-  for (int i = 0; i < MS / 16; ++i) {
-#pragma unroll
-    for (int n = 0; n < DP / 8; ++n) {
-      const bf16* col = tile + (16 * i + 2 * c) * KS + 8 * n + g;
-      mma_bf16(acc[n], a[i], pack2(col[0], col[KS]), pack2(col[8 * KS], col[9 * KS]));
-    }
-  }
-}
-
-// [16 x 64] = a (16 x DP fragments) * tile^T (the 64 staged rows as columns),
-// as n-tiles of 8 columns.
-template <int DP>
-__device__ __forceinline__ void mma_abt(float (&out)[MS / 8][4],
-                                        const uint32_t (&a)[DP / 16][4],
-                                        const bf16* tile, int g, int c) {
-  constexpr int KS = DP + 8;
-#pragma unroll
-  for (int j = 0; j < MS / 8; ++j) {
-    out[j][0] = out[j][1] = out[j][2] = out[j][3] = 0.f;
-    const bf16* row = tile + (8 * j + g) * KS + 2 * c;
-#pragma unroll
-    for (int kk = 0; kk < DP / 16; ++kk)
-      mma_bf16(out[j], a[kk], ld32(row + kk * 16), ld32(row + kk * 16 + 8));
-  }
-}
-
-// DP = D rounded up to 16 (the product depth); the padding columns are zero.
-//
-// mma.sync m16n8k16 fragments, with g = lane / 4 and c = lane % 4:
-//   A (16x16): regs {row g, k 2c..2c+1}, {row g+8, same}, {row g, k 2c+8..},
-//              {row g+8, k 2c+8..};
-//   B (16x8):  regs {k 2c..2c+1, n g}, {k 2c+8..2c+9, n g};
-//   C (16x8):  {row g, n 2c}, {row g, n 2c+1}, {row g+8, n 2c}, {row g+8, n 2c+1}.
-// n-tiles 2i and 2i + 1 of a C result are k-step i of an A operand.
-template <int DP>
-__global__ void __launch_bounds__(MT)
-bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                   const float* __restrict__ lse, const float* __restrict__ delta,
-                   bf16* __restrict__ dq, int t, int d, int kv_len) {
-  constexpr int NKK = DP / 16, NS = MS / 8, NO = DP / 8;
-  __shared__ __align__(16) bf16 ks[MS * (DP + 8)];
-  __shared__ __align__(16) bf16 vs[MS * (DP + 8)];
+__global__ void __launch_bounds__(MT, DP <= 64 ? 4 : 1)
+bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const __grid_constant__ CUtensorMap omap,
+                   const __grid_constant__ CUtensorMap gmap,
+                   const __grid_constant__ CUtensorMap dqmap, const float* __restrict__ lse,
+                   float* __restrict__ delta, int t, int d, int n_kv) {
+  using namespace hopper;
+  constexpr int NC = (DP + 63) / 64;     // 64-column chunks of a tile
+  constexpr int TILE = NC * TILE_BYTES;  // one 64-row tile over the whole depth
+  constexpr int NKS = DP / 16;           // k16 steps of the score products
+  constexpr int NS = 8;                  // n8 blocks of a 64-key score tile
+  constexpr int NO = 32 * NC;            // dq accumulators: 64 rows x 64 NC
+  constexpr int N16 = DP / 8;            // 16-byte chunks of a row up to DP
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t q_full, kv_full[DQ_STAGES];
+  uint8_t* qs = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  uint8_t* gs = qs + TILE;                // dO
+  uint8_t* ks = gs + TILE;                // [DQ_STAGES] K tiles
+  uint8_t* vs = ks + DQ_STAGES * TILE;    // [DQ_STAGES] V tiles
+  uint8_t* os = ks + TILE;                // O, in slot 1's K tile until D is summed
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g = lane / 4, c = lane % 4;
-  const int q0 = blockIdx.x * MR;
-  const size_t base = (size_t)blockIdx.y * t * d;
-  const size_t sbase = (size_t)blockIdx.y * t;
-  const int n_kv = min(kv_len, t);
+  const int q0 = blockIdx.x * MR, bh = blockIdx.y;
+  const int n_kt = (n_kv + MS - 1) / MS;
+  // this thread's two rows of the tile, rr and rr + 8
+  const int rr = warp * 16 + g, r0 = q0 + rr, r1 = r0 + 8;
+  const bool warp_dead = q0 + warp * 16 >= t;
 
-  // q and dO through the K and V buffers into registers, once.
-  stage_tile<DP>(ks, q + base, q0, t, d, tid);
-  stage_tile<DP>(vs, dout + base, q0, t, d, tid);
-  __syncthreads();
-  uint32_t qf[NKK][4], gf[NKK][4];
-  load_a<DP>(qf, ks, warp, g, c);
-  load_a<DP>(gf, vs, warp, g, c);
+  if (tid == 0) {
+    mbar_init(&q_full, 1);
+    for (int s = 0; s < DQ_STAGES; ++s) mbar_init(&kv_full[s], 1);
+    mbar_fence_init();
+  }
+  __syncthreads();  // barriers ready
+  auto load_kv_tile = [&](int j, int s) {
+    mbar_expect_tx(&kv_full[s], 2 * TILE);
+    tma_load_rows<NC>(ks + s * TILE, &kmap, &kv_full[s], MS * j, bh);
+    tma_load_rows<NC>(vs + s * TILE, &vmap, &kv_full[s], MS * j, bh);
+  };
+  if (tid == 0) {
+    mbar_expect_tx(&q_full, 3 * TILE);
+    tma_load_rows<NC>(qs, &qmap, &q_full, q0, bh);
+    tma_load_rows<NC>(gs, &gmap, &q_full, q0, bh);
+    tma_load_rows<NC>(os, &omap, &q_full, q0, bh);
+    load_kv_tile(0, 0);
+  }
+  // L log2(e) of this thread's rows; rows past T take +inf, so P = 0
+  const float l0 = r0 < t ? lse[(size_t)bh * t + r0] * LOG2E : INFINITY;
+  const float l1 = r1 < t ? lse[(size_t)bh * t + r1] * LOG2E : INFINITY;
+  mbar_wait(&q_full, 0);
 
-  // this thread's two rows, g and g + 8; rows past T get P = 0
-  const int r0 = q0 + warp * 16 + g, r1 = r0 + 8;
-  const float l0 = r0 < t ? lse[sbase + r0] : INFINITY;
-  const float l1 = r1 < t ? lse[sbase + r1] : INFINITY;
-  const float d0 = r0 < t ? delta[sbase + r0] : 0.f;
-  const float d1 = r1 < t ? delta[sbase + r1] : 0.f;
-
-  float acc[NO][4];
+  // D = rowsum(dO * O): chunks c, c + 4, ... of rows rr and rr + 8 (TMA
+  // zero-filled the columns past D), then the sum over the quad
+  float d0 = 0.f, d1 = 0.f;
 #pragma unroll
-  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int i = 0; i < (N16 + 3) / 4; ++i) {
+    const int col = 8 * (c + 4 * i);
+    if (col < DP) {
+      d0 = dot8(gs + swizzled(rr, col), os + swizzled(rr, col), d0);
+      d1 = dot8(gs + swizzled(rr + 8, col), os + swizzled(rr + 8, col), d1);
+    }
+  }
+  d0 += __shfl_xor_sync(0xffffffffu, d0, 1);
+  d0 += __shfl_xor_sync(0xffffffffu, d0, 2);
+  d1 += __shfl_xor_sync(0xffffffffu, d1, 1);
+  d1 += __shfl_xor_sync(0xffffffffu, d1, 2);
+  d0 = r0 < t ? d0 : 0.f;
+  d1 = r1 < t ? d1 : 0.f;
+  __syncthreads();  // every thread has read O: slot 1 is free
+  if (tid == 0 && n_kt > 1) {
+    fence_proxy_async();
+    load_kv_tile(1, 1);
+  }
+  if (c == 0) {
+    if (r0 < t) delta[(size_t)bh * t + r0] = d0;
+    if (r1 < t) delta[(size_t)bh * t + r1] = d1;
+  }
 
-  for (int k0 = 0; k0 < n_kv; k0 += MS) {
-    __syncthreads();  // fragments taken; the previous tile is consumed
-    stage_tile<DP>(ks, k + base, k0, n_kv, d, tid);
-    stage_tile<DP>(vs, v + base, k0, n_kv, d, tid);
-    __syncthreads();
-
-    float s[NS][4], dp[NS][4];
-    mma_abt<DP>(s, qf, ks, g, c);
-    mma_abt<DP>(dp, gf, vs, g, c);
-
-    // dS = P * (dP - D), rounded to bf16 as the A operand of dS K.
-    uint32_t dsf[MS / 16][4];
+  float acc[NO];
 #pragma unroll
-    for (int j = 0; j < NS; ++j) {
+  for (int i = 0; i < NO; ++i) acc[i] = 0.f;
+
+  for (int j = 0; j < n_kt; ++j) {
+    const int s = j % DQ_STAGES, k0 = MS * j;
+    const uint8_t* kt = ks + s * TILE;
+    const uint8_t* vt = vs + s * TILE;
+    mbar_wait(&kv_full[s], (j / DQ_STAGES) & 1);
+
+    float sacc[32], pacc[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NKS; ++kk)  // the first steps overwrite sacc and pacc
+      wgmma_ss_n64(sacc, desc_k(qs, kk), desc_k(kt, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < NKS; ++kk) wgmma_ss_n64(pacc, desc_k(gs, kk), desc_k(vt, kk), kk > 0);
+    wgmma_commit();
+    pin(pacc);
+    wgmma_wait<1>();  // S is done; dP runs on under the exponentials
+    pin(sacc);
+    // P = exp(S - L) = exp2(S log2 e - L log2 e) in place in sacc; dead keys
+    // and the rows of a dead warp give 0
+#pragma unroll
+    for (int jj = 0; jj < NS; ++jj)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool live = k0 + 8 * jj + 2 * c + e < n_kv && !warp_dead;
+        sacc[4 * jj + e] = live ? exp2f(fmaf(sacc[4 * jj + e], LOG2E, -l0)) : 0.f;
+        sacc[4 * jj + 2 + e] = live ? exp2f(fmaf(sacc[4 * jj + 2 + e], LOG2E, -l1)) : 0.f;
+      }
+    wgmma_wait<0>();
+    pin(pacc);
+
+    // dS = P * (dP - D) over this thread's rows and the tile's keys
+    // 8 jj + 2 c + e, rounded to bf16 as the A operand of dS K.  An n8 block
+    // of dead keys, or a warp whose rows all lie past T (both uniform across
+    // the warp), has dS = 0.
+    uint32_t sf[4][4];
+#pragma unroll
+    for (int jj = 0; jj < NS; ++jj) {
+      if (k0 + 8 * jj >= n_kv || warp_dead) {
+        sf[jj / 2][(jj % 2) * 2] = sf[jj / 2][(jj % 2) * 2 + 1] = 0u;
+        continue;
+      }
       float ds[4];
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const bool live = k0 + 8 * j + 2 * c + e < n_kv;
-        const float p0 = live ? expf(s[j][e] - l0) : 0.f;
-        const float p1 = live ? expf(s[j][2 + e] - l1) : 0.f;
-        ds[e] = p0 * (dp[j][e] - d0);
-        ds[2 + e] = p1 * (dp[j][2 + e] - d1);
+        ds[e] = sacc[4 * jj + e] * (pacc[4 * jj + e] - d0);
+        ds[2 + e] = sacc[4 * jj + 2 + e] * (pacc[4 * jj + 2 + e] - d1);
       }
-      dsf[j / 2][(j % 2) * 2] = pack_bf16(ds[0], ds[1]);
-      dsf[j / 2][(j % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+      sf[jj / 2][(jj % 2) * 2] = pack_bf16(ds[0], ds[1]);
+      sf[jj / 2][(jj % 2) * 2 + 1] = pack_bf16(ds[2], ds[3]);
     }
-    mma_a_tile<DP>(acc, dsf, ks, g, c);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if (k0 + 16 * kk >= n_kv) break;  // dS = 0 for the rest of the tile
+      if constexpr (NC == 1)
+        wgmma_rs_n64(acc, sf[kk], desc_mn(kt, kk), 1);
+      else
+        wgmma_rs_n128(acc, sf[kk], desc_mn(kt, kk), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+
+    __syncthreads();  // every warp is done with slot s
+    if (tid == 0 && j + DQ_STAGES < n_kt) {
+      fence_proxy_async();
+      load_kv_tile(j + DQ_STAGES, s);
+    }
   }
 
+  // dq through the q tile, whose last reader (the last S) is done, then out
+  // by TMA, which drops the rows past T and columns past D.
 #pragma unroll
-  for (int n = 0; n < NO; ++n) {
-    if (8 * n >= d) break;
+  for (int n = 0; n < NO / 4; ++n) {
     const int col = 8 * n + 2 * c;
-    if (r0 < t)
-      *reinterpret_cast<uint32_t*>(dq + base + (size_t)r0 * d + col) =
-          pack_bf16(acc[n][0], acc[n][1]);
-    if (r1 < t)
-      *reinterpret_cast<uint32_t*>(dq + base + (size_t)r1 * d + col) =
-          pack_bf16(acc[n][2], acc[n][3]);
+    *reinterpret_cast<uint32_t*>(qs + swizzled(rr, col)) = pack_bf16(acc[4 * n], acc[4 * n + 1]);
+    *reinterpret_cast<uint32_t*>(qs + swizzled(rr + 8, col)) =
+        pack_bf16(acc[4 * n + 2], acc[4 * n + 3]);
   }
+  fence_proxy_async();
+  __syncthreads();
+  if (tid == 0) tma_store_rows<NC>(&dqmap, qs, q0, bh);
 }
 
 // dk/dv, designed for Hopper.  One warpgroup per (batch*head, 64-key tile),
@@ -514,7 +571,6 @@ bwd_dq_bf16_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 //   hold only such rows or keys are skipped.  dK and dV leave through the K
 //   and V tiles and a TMA store, with the rows of dead keys exact zeros.
 constexpr int DKV_STAGES = 2;
-constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DP>
 constexpr size_t dkv_smem_bytes() {
@@ -668,8 +724,7 @@ bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap qmap,
   // dK and dV through the K and V tiles (free once the last products are
   // done), then out by TMA, which drops the rows past T and columns past D;
   // the rows of dead keys are written as exact zeros.
-  const bf16 zero = __float2bfloat16(0.f);
-  const uint32_t zz = pack2(zero, zero);
+  const uint32_t zz = 0u;  // two bf16 zeros
   const int rr = warp * 16 + g;
 #pragma unroll
   for (int n = 0; n < NO / 4; ++n) {
@@ -702,15 +757,16 @@ size_t dkv_f32_smem(int d) {
 }
 
 template <int NJ>
-cudaError_t launch_dq_f32(const float* q, const float* k, const float* v, const float* g,
-                          const float* lse, const float* delta, float* dq, int bh, int t,
-                          int d, int kv_len, cudaStream_t stream) {
+cudaError_t launch_dq_f32(const float* q, const float* k, const float* v, const float* o,
+                          const float* g, const float* lse, float* delta, float* dq, int bh,
+                          int t, int d, int kv_len, cudaStream_t stream) {
   const size_t smem = dq_f32_smem(d);
   cudaError_t err = cudaFuncSetAttribute(
       bwd_dq_f32_kernel<NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((t + BQ - 1) / BQ, bh);
-  bwd_dq_f32_kernel<NJ><<<grid, NT, smem, stream>>>(q, k, v, g, lse, delta, dq, t, d, kv_len);
+  bwd_dq_f32_kernel<NJ><<<grid, NT, smem, stream>>>(q, k, v, o, g, lse, delta, dq, t, d,
+                                                    kv_len);
   return cudaGetLastError();
 }
 
@@ -729,11 +785,23 @@ cudaError_t launch_dkv_f32(const float* q, const float* k, const float* v, const
 }
 
 template <int DP>
-cudaError_t launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* g,
-                           const float* lse, const float* delta, bf16* dq, int bh, int t,
-                           int d, int kv_len, cudaStream_t stream) {
+cudaError_t launch_dq_bf16(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+                           const bf16* g, const float* lse, float* delta, bf16* dq, int bh,
+                           int t, int d, int kv_len, cudaStream_t stream) {
+  const int n_kv = min(kv_len, t);
+  cudaError_t err = hopper::bind_device();
+  if (err != cudaSuccess) return err;
+  CUtensorMap qmap, kmap, vmap, omap, gmap, dqmap;
+  if (!hopper::map_rows(&qmap, q, bh, t, t, d) || !hopper::map_rows(&kmap, k, bh, n_kv, t, d) ||
+      !hopper::map_rows(&vmap, v, bh, n_kv, t, d) || !hopper::map_rows(&omap, o, bh, t, t, d) ||
+      !hopper::map_rows(&gmap, g, bh, t, t, d) || !hopper::map_rows(&dqmap, dq, bh, t, t, d))
+    return cudaErrorInvalidValue;
+  constexpr size_t smem = dq_smem_bytes<DP>();
+  err = hopper::allow_smem<bwd_dq_bf16_kernel<DP>>(smem);
+  if (err != cudaSuccess) return err;
   const dim3 grid((t + MR - 1) / MR, bh);
-  bwd_dq_bf16_kernel<DP><<<grid, MT, 0, stream>>>(q, k, v, g, lse, delta, dq, t, d, kv_len);
+  bwd_dq_bf16_kernel<DP><<<grid, MT, smem, stream>>>(qmap, kmap, vmap, omap, gmap, dqmap, lse,
+                                                     delta, t, d, n_kv);
   return cudaGetLastError();
 }
 
@@ -742,13 +810,15 @@ cudaError_t launch_dkv_bf16(const bf16* q, const bf16* k, const bf16* v, const b
                             const float* lse, const float* delta, bf16* dk, bf16* dv,
                             int bh, int t, int d, int kv_len, cudaStream_t stream) {
   const int n_kv = min(kv_len, t);
+  cudaError_t err = hopper::bind_device();
+  if (err != cudaSuccess) return err;
   CUtensorMap qmap, kmap, vmap, gmap, dkmap, dvmap;
   if (!hopper::map_rows(&qmap, q, bh, t, t, d) || !hopper::map_rows(&kmap, k, bh, n_kv, t, d) ||
       !hopper::map_rows(&vmap, v, bh, n_kv, t, d) || !hopper::map_rows(&gmap, g, bh, t, t, d) ||
       !hopper::map_rows(&dkmap, dk, bh, t, t, d) || !hopper::map_rows(&dvmap, dv, bh, t, t, d))
     return cudaErrorInvalidValue;
   constexpr size_t smem = dkv_smem_bytes<DP>();
-  const cudaError_t err = hopper::allow_smem<bwd_dkv_bf16_kernel<DP>>(smem);
+  err = hopper::allow_smem<bwd_dkv_bf16_kernel<DP>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((t + MR - 1) / MR, bh);
   bwd_dkv_bf16_kernel<DP><<<grid, MT, smem, stream>>>(qmap, kmap, vmap, gmap, dkmap, dvmap, lse,
@@ -778,28 +848,32 @@ bool bad_shape(int bh, int t, int d, int kv_len) {
 
 // Both return a cudaError_t: 0 when the launch was accepted.  dtype 0 =
 // fp32, 1 = bf16.  The Python wrapper validates shapes, dtypes, alignment
-// and devices.
-extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v,
-                                 const void* dout, const void* lse, const void* delta,
-                                 void* dq, int bh, int t, int d, int kv_len, int dtype,
-                                 void* stream) {
+// and devices.  flash_attn_bwd_dq writes D (delta) as well as dq;
+// flash_attn_bwd_dkv reads that D, so it runs after dq on the same stream.
+extern "C" int flash_attn_bwd_dq(const void* q, const void* k, const void* v, const void* o,
+                                 const void* dout, const void* lse, void* delta, void* dq,
+                                 int bh, int t, int d, int kv_len, int dtype, void* stream) {
   if (bad_shape(bh, t, d, kv_len)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
+  float* dl = static_cast<float*>(delta);
   if (dtype == 0) {
     const float *fq = static_cast<const float*>(q), *fk = static_cast<const float*>(k),
-                *fv = static_cast<const float*>(v), *fg = static_cast<const float*>(dout);
+                *fv = static_cast<const float*>(v), *fo = static_cast<const float*>(o),
+                *fg = static_cast<const float*>(dout);
     float* fdq = static_cast<float*>(dq);
-#define CASE(nj, dp) return (int)launch_dq_f32<nj>(fq, fk, fv, fg, l, dl, fdq, bh, t, d, kv_len, s)
+#define CASE(nj, dp) \
+  return (int)launch_dq_f32<nj>(fq, fk, fv, fo, fg, l, dl, fdq, bh, t, d, kv_len, s)
     DISPATCH_D(d, CASE)
 #undef CASE
   }
   if (dtype == 1) {
     const bf16 *bq = static_cast<const bf16*>(q), *bk = static_cast<const bf16*>(k),
-               *bv = static_cast<const bf16*>(v), *bg = static_cast<const bf16*>(dout);
+               *bv = static_cast<const bf16*>(v), *bo = static_cast<const bf16*>(o),
+               *bg = static_cast<const bf16*>(dout);
     bf16* bdq = static_cast<bf16*>(dq);
-#define CASE(nj, dp) return (int)launch_dq_bf16<dp>(bq, bk, bv, bg, l, dl, bdq, bh, t, d, kv_len, s)
+#define CASE(nj, dp) \
+  return (int)launch_dq_bf16<dp>(bq, bk, bv, bo, bg, l, dl, bdq, bh, t, d, kv_len, s)
     DISPATCH_D(d, CASE)
 #undef CASE
   }

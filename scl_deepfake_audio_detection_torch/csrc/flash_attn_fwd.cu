@@ -456,12 +456,14 @@ cudaError_t launch_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                         float* lse, int bh, int t, int d, int kv_len,
                         cudaStream_t stream) {
   const int n_kv = min(kv_len, t);
+  cudaError_t err = hopper::bind_device();
+  if (err != cudaSuccess) return err;
   CUtensorMap qmap, kmap, vmap, omap;
   if (!hopper::map_rows(&qmap, q, bh, t, t, d) || !hopper::map_rows(&kmap, k, bh, n_kv, t, d) ||
       !hopper::map_rows(&vmap, v, bh, n_kv, t, d) || !hopper::map_rows(&omap, o, bh, t, t, d))
     return cudaErrorInvalidValue;
   constexpr size_t smem = fwd_smem_bytes<DP>();
-  const cudaError_t err = hopper::allow_smem<flash_fwd_bf16_kernel<DP>>(smem);
+  err = hopper::allow_smem<flash_fwd_bf16_kernel<DP>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((t + NW * 64 - 1) / (NW * 64), bh);
   flash_fwd_bf16_kernel<DP><<<grid, NW * 128, smem, stream>>>(qmap, kmap, vmap, omap, lse, t,

@@ -289,6 +289,17 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// Makes the primary context of the runtime's current device current to the
+// calling thread.  cuTensorMapEncodeTiled fails in a thread with no current
+// context, such as PyTorch's autograd worker when a kernel launch is the
+// first CUDA work it does; every launcher that encodes maps calls this
+// first.
+inline cudaError_t bind_device() {
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  return err != cudaSuccess ? err : cudaSetDevice(dev);
+}
+
 // A [bh, rows, d] view of a contiguous bf16 [bh, t, d] tensor (rows <= t),
 // read in boxes of 64 rows x 64 columns with the 128-byte swizzle; rows
 // past `rows` and columns past d come in as zeros.

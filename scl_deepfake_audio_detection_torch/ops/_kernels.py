@@ -40,7 +40,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # pointers, then (bh, t, d, kv_len, dtype), then the stream
 ARGTYPES = {
     "flash_attn_fwd": [_P] * 5 + [_I] * 5 + [_P],
-    "flash_attn_bwd_dq": [_P] * 7 + [_I] * 5 + [_P],
+    "flash_attn_bwd_dq": [_P] * 8 + [_I] * 5 + [_P],
     "flash_attn_bwd_dkv": [_P] * 8 + [_I] * 5 + [_P],
 }
 NVCC_FLAGS = (
@@ -189,40 +189,49 @@ def flash_attn_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o, lse
 
 
-def _check_bwd(name, q, k, v, do, lse, delta, kv_len) -> int:
-    _check_cuda(name, q, k, v, do, lse, delta)
+def _check_bwd(name, q, k, v, kv_len, rows, stats) -> int:
+    """Raise on what a backward kernel does not take; ``rows`` names the
+    [B, H, T, D] inputs beside q, k, v (dO, and O for dq), ``stats`` the fp32
+    [B, H, T] ones (LSE, and D for dk/dv).  Return the effective ``kv_len``."""
+    _check_cuda(name, q, k, v, *rows.values(), *stats.values())
     kv = check_flash_inputs(q, k, v, kv_len)
-    if do.shape != q.shape or do.dtype != q.dtype or not do.is_contiguous():
-        raise ValueError(f"{name}: dO must be contiguous with q's shape and dtype")
-    for x in (lse, delta):
+    for label, x in rows.items():
+        if x.shape != q.shape or x.dtype != q.dtype or not x.is_contiguous():
+            raise ValueError(f"{name}: {label} must be contiguous with q's shape and dtype")
+    for label, x in stats.items():
         if x.shape != q.shape[:3] or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"{name}: LSE and D must be contiguous fp32 [B, H, T]")
+            raise ValueError(f"{name}: {label} must be contiguous fp32 [B, H, T]")
     return kv
 
 
-def flash_attn_bwd_dq(q, k, v, do, lse, delta, kv_len: Optional[int] = None):
-    """Launch the Hopper dq kernel on CUDA tensors: q, k, v, dO [B, H, T, D]
-    in one dtype, LSE (the forward's) and D = rowsum(dO * O) fp32 [B, H, T].
-    Returns dq in q's dtype."""
-    kv = _check_bwd("flash_attn_bwd_dq", q, k, v, do, lse, delta, kv_len)
+def flash_attn_bwd_dq(q, k, v, o, do, lse, kv_len: Optional[int] = None):
+    """Launch the Hopper dq kernel on CUDA tensors: q, k, v, O (the
+    forward's output) and dO [B, H, T, D] contiguous in one dtype, LSE (the
+    forward's) fp32 [B, H, T].  Returns (dq in q's dtype, D = rowsum(dO * O)
+    fp32 [B, H, T]); the kernel computes D from its dO and O tiles, and
+    ``flash_attn_bwd_dkv`` takes that D on the same stream."""
+    kv = _check_bwd("flash_attn_bwd_dq", q, k, v, kv_len, {"dO": do, "O": o}, {"LSE": lse})
     b, h, t, d = q.shape
     fn = _fn("flash_attn_bwd_dq")
     with torch.cuda.device(q.device):
         dq = torch.empty_like(q)
+        delta = torch.empty((b, h, t), device=q.device, dtype=torch.float32)
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                  lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h, t, d, kv,
                  _dtype_code(q), stream)
     _check(err, "flash_attn_bwd_dq")
     LAUNCHES["flash_attn_bwd_dq"] += 1
-    return dq
+    return dq, delta
 
 
 def flash_attn_bwd_dkv(q, k, v, do, lse, delta, kv_len: Optional[int] = None):
-    """Launch the Hopper dk/dv kernel on CUDA tensors (inputs as
-    ``flash_attn_bwd_dq``).  Returns (dk, dv) in k's dtype; rows at keys
-    >= ``kv_len`` are exactly 0."""
-    kv = _check_bwd("flash_attn_bwd_dkv", q, k, v, do, lse, delta, kv_len)
+    """Launch the Hopper dk/dv kernel on CUDA tensors: q, k, v, dO as
+    ``flash_attn_bwd_dq``, LSE and D (the one ``flash_attn_bwd_dq`` returns)
+    fp32 [B, H, T].  Returns (dk, dv) in k's dtype; rows at keys >=
+    ``kv_len`` are exactly 0."""
+    kv = _check_bwd("flash_attn_bwd_dkv", q, k, v, kv_len, {"dO": do},
+                    {"LSE": lse, "D": delta})
     b, h, t, d = q.shape
     fn = _fn("flash_attn_bwd_dkv")
     with torch.cuda.device(q.device):

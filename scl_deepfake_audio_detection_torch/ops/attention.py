@@ -10,8 +10,9 @@ the JAX layout: q, k, v are [B, H, T, D] and q is already scaled by
   (``csrc/flash_attn_fwd.cu``) for CUDA tensors, and from its plain version
   ``flash_attention_forward_reference`` for CPU tensors.
 - ``flash_attention_backward``: (dq, dk, dv) from the two hand-written
-  Hopper kernels (``csrc/flash_attn_bwd.cu``) for CUDA tensors, and from
-  their plain versions for CPU tensors.
+  Hopper kernels (``csrc/flash_attn_bwd.cu``; the dq kernel also computes
+  D = rowsum(dO * O), which dk/dv reads) for CUDA tensors, and from their
+  plain versions for CPU tensors.
 - ``flash_attention``: the differentiable flash core (``FlashAttention``),
   counterpart of the JAX ``custom_vjp``.
 - ``self_attention``: the dispatch the encoder calls.
@@ -97,11 +98,18 @@ def _delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.float() * o.float()).sum(dim=-1)
 
 
-def flash_attention_backward_reference(q, k, v, o, lse, do, kv_len=None):
-    """Plain version of ``_flash_backward``: D = rowsum(dO * O) from the O the
-    forward returned, then the two kernels' plain versions."""
+def flash_bwd_dq_delta_reference(q, k, v, o, do, lse, kv_len=None):
+    """Plain version of the dq kernel's contract (``flash_attn_bwd_dq``):
+    D = rowsum(dO * O) from the O the forward returned, then
+    ``flash_bwd_dq_reference``.  Returns (dq in q's dtype, D fp32 [B, H, T])."""
     delta = _delta(o, do)
-    dq = flash_bwd_dq_reference(q, k, v, do, lse, delta, kv_len)
+    return flash_bwd_dq_reference(q, k, v, do, lse, delta, kv_len), delta
+
+
+def flash_attention_backward_reference(q, k, v, o, lse, do, kv_len=None):
+    """Plain version of ``_flash_backward``: dq and D, then dk and dv from
+    that D, each through its kernel's plain version."""
+    dq, delta = flash_bwd_dq_delta_reference(q, k, v, o, do, lse, kv_len)
     return (dq, *flash_bwd_dkv_reference(q, k, v, do, lse, delta, kv_len))
 
 
@@ -120,14 +128,15 @@ def flash_attention_forward(
 
 
 def flash_attention_backward(q, k, v, o, lse, do, kv_len=None):
-    """(dq, dk, dv): D = rowsum(dO * O) with torch, then the two Hopper
-    kernels for CUDA tensors; the plain versions for CPU tensors
-    (counterpart of ``_flash_backward``)."""
+    """(dq, dk, dv): for CUDA tensors the two Hopper kernels, dq first, which
+    also computes D = rowsum(dO * O), then dk/dv, which reads that D, on the
+    same stream; the plain versions for CPU tensors (counterpart of
+    ``_flash_backward``).  O is the forward's output as saved, contiguous:
+    the kernel raises on anything else."""
     do = do.contiguous()
     if not q.is_cuda:
         return flash_attention_backward_reference(q, k, v, o, lse, do, kv_len)
-    delta = _delta(o, do)
-    dq = _kernels.flash_attn_bwd_dq(q, k, v, do, lse, delta, kv_len)
+    dq, delta = _kernels.flash_attn_bwd_dq(q, k, v, o, do, lse, kv_len)
     return (dq, *_kernels.flash_attn_bwd_dkv(q, k, v, do, lse, delta, kv_len))
 
 

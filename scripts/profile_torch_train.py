@@ -92,9 +92,9 @@ def main() -> int:
     shape = (g * v, ssl.num_heads, t, ssl.head_dim)
     q = torch.randn(shape, device="cuda").bfloat16()
     o, lse = K.flash_attn_fwd(q, q, q)
-    delta = (q.float() * o.float()).sum(-1)
+    _, delta = K.flash_attn_bwd_dq(q, q, q, o, q, lse)
     calls = {"flash_attn_fwd": lambda: K.flash_attn_fwd(q, q, q),
-             "flash_attn_bwd_dq": lambda: K.flash_attn_bwd_dq(q, q, q, q, lse, delta),
+             "flash_attn_bwd_dq": lambda: K.flash_attn_bwd_dq(q, q, q, o, q, lse),
              "flash_attn_bwd_dkv": lambda: K.flash_attn_bwd_dkv(q, q, q, q, lse, delta)}
     attn = 0.0
     for name, fn in calls.items():

@@ -7,7 +7,11 @@ runs it), in O and LSE.  Tolerances: fp32 differs by summation order only
 (2e-5); in bf16 the Pallas kernel rounds P at the running max of each
 128-key block while the plain version rounds at the final max, and O is
 rounded to bf16, so O is held to a few bf16 ulps (3e-2) and LSE, which
-both compute in fp32, to 1e-4."""
+both compute in fp32, to 1e-4.
+
+Every interpreted Pallas run starts from a fresh interpret-mode state (the
+``interpret`` fixture), and a mismatch names both sides' largest magnitude
+and their largest difference."""
 
 import numpy as np
 import pytest
@@ -31,34 +35,49 @@ def _f32(x):
     return np.array(jnp.asarray(x, jnp.float32))
 
 
-@pytest.mark.parametrize("t,kv_len", [(128, None), (128, 100), (199, None), (199, 186),
-                                      (201, None), (201, 188), (256, None), (256, 201)])
-def test_flash_reference_matches_interpret_pallas(rng, t, kv_len):
+@pytest.fixture
+def interpret():
+    """Pallas's TPU interpret mode from a fresh simulator state: its shared
+    state is per process and is left behind by a kernel that raised."""
     from jax.experimental.pallas import tpu as pltpu
 
+    pltpu.reset_tpu_interpret_mode_state()
+    return pltpu.force_tpu_interpret_mode
+
+
+def _assert_close(port, jax_side, rtol, atol, name):
+    """assert_allclose whose message names both sides' max |x| and the max
+    |port - jax|."""
+    port, jax_side = np.asarray(port, np.float32), np.asarray(jax_side, np.float32)
+    msg = (f"{name}: max |port - jax| {np.abs(port - jax_side).max():.3e}, "
+           f"max |port| {np.abs(port).max():.3e}, max |jax| {np.abs(jax_side).max():.3e}")
+    np.testing.assert_allclose(port, jax_side, rtol=rtol, atol=atol, err_msg=msg)
+
+
+@pytest.mark.parametrize("t,kv_len", [(128, None), (128, 100), (199, None), (199, 186),
+                                      (201, None), (201, 188), (256, None), (256, 201)])
+def test_flash_reference_matches_interpret_pallas(rng, interpret, t, kv_len):
     q, k, v = _qkv(rng, t=t)
-    with pltpu.force_tpu_interpret_mode():
+    with interpret():
         jo, jl = JA._flash_forward(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), kv_len)
     po, pl = PA.flash_attention_forward_reference(
         torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v), kv_len)
     assert po.shape == (1, 2, t, 16) and pl.shape == (1, 2, t) and pl.dtype == torch.float32
-    np.testing.assert_allclose(po.numpy(), _f32(jo), rtol=2e-5, atol=2e-5)
-    np.testing.assert_allclose(pl.numpy(), _f32(jl), rtol=2e-5, atol=2e-5)
+    _assert_close(po.numpy(), _f32(jo), 2e-5, 2e-5, "O")
+    _assert_close(pl.numpy(), _f32(jl), 2e-5, 2e-5, "LSE")
 
 
 @pytest.mark.parametrize("kv_len", [None, 188])
-def test_flash_reference_matches_interpret_pallas_bf16(rng, kv_len):
-    from jax.experimental.pallas import tpu as pltpu
-
+def test_flash_reference_matches_interpret_pallas_bf16(rng, interpret, kv_len):
     q, k, v = _qkv(rng, t=201)
     jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
-    with pltpu.force_tpu_interpret_mode():
+    with interpret():
         jo, jl = JA._flash_forward(jq, jk, jv, kv_len)
     tq, tk, tv = (torch.from_numpy(_f32(a)).bfloat16() for a in (jq, jk, jv))
     po, pl = PA.flash_attention_forward_reference(tq, tk, tv, kv_len)
     assert po.dtype == torch.bfloat16
-    np.testing.assert_allclose(po.float().numpy(), _f32(jo), rtol=3e-2, atol=3e-2)
-    np.testing.assert_allclose(pl.numpy(), _f32(jl), rtol=1e-4, atol=1e-4)
+    _assert_close(po.float().numpy(), _f32(jo), 3e-2, 3e-2, "O")
+    _assert_close(pl.numpy(), _f32(jl), 1e-4, 1e-4, "LSE")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

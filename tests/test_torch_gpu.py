@@ -5,9 +5,14 @@ Run them on a machine with a card: ``python -m pytest -m gpu tests/test_torch_*.
 
 Tolerances as in ``chip_smoke.py``: fp32 differs by summation order (O 2e-5,
 LSE 1e-5; TF32 off); in bf16 P is rounded at the kernel's running max and
-O is rounded to bf16, so O is held to 3e-2 and LSE to 1e-4."""
+O is rounded to bf16, so O is held to 3e-2 and LSE to 1e-4.  D = rowsum(dO *
+O), which the dq kernel computes, is the same fp32 sum in another order: a
+sum of n terms is off by at most about n 2^-24 times the sum of their
+magnitudes, so D is held to 1e-5 of the largest row's sum of |dO * O| (n up
+to 128 here)."""
 
 import os
+import threading
 
 import numpy as np
 import pytest
@@ -24,6 +29,19 @@ TOL = {torch.float32: (2e-5, 1e-5), torch.bfloat16: (3e-2, 1e-4)}
 # switch from K/V held whole (T <= 256) to K/V streamed (257)
 SEQS = [(1, None), (63, None), (64, None), (65, 60), (128, None), (129, 120),
         (199, None), (201, 188), (256, None), (257, 250), (1024, 1011)]
+
+
+def _tol_delta(o, do):
+    return 1e-5 * (do.float() * o.float()).abs().sum(-1).max().item()
+
+
+def _bwd_inputs(t, d, dtype, seed, b=2, h=4, kv_len=None):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (b, h, t, d)
+    q = (torch.randn(shape, device="cuda", generator=g) * d ** -0.5).to(dtype)
+    k, v, do = (torch.randn(shape, device="cuda", generator=g).to(dtype) for _ in range(3))
+    o, lse = PA.flash_attention_forward(q, k, v, kv_len)
+    return q, k, v, o, do, lse
 
 
 def _need_card():
@@ -71,24 +89,23 @@ def test_flash_kernel_refuses_misaligned_inputs():
 @pytest.mark.parametrize("d", [8, 64, 80, 128])
 @pytest.mark.parametrize("t,kv_len", SEQS)
 def test_backward_kernels_match_plain_versions(dtype, d, t, kv_len):
-    """fp32 to 2e-5 (summation order); bf16 to one bf16 ulp of the largest
-    |gradient| (2^-7 of max) plus 2e-5 for gradients that are zero up to
-    rounding (T = 1), as chip_smoke.TOL_BWD."""
+    """dq and D from the dq kernel, dk and dv from the dk/dv kernel fed that
+    D, against the plain versions.  fp32 to 2e-5 (summation order); bf16 to
+    one bf16 ulp of the largest |gradient| (2^-7 of max) plus 2e-5 for
+    gradients that are zero up to rounding (T = 1), as chip_smoke.TOL_BWD;
+    D to ``_tol_delta``."""
     _need_card()
-    g = torch.Generator(device="cuda").manual_seed(t * 1000 + d)
-    shape = (2, 4, t, d)
-    q = (torch.randn(shape, device="cuda", generator=g) * d ** -0.5).to(dtype)
-    k, v, do = (torch.randn(shape, device="cuda", generator=g).to(dtype) for _ in range(3))
-    o, lse = PA.flash_attention_forward(q, k, v, kv_len)
-    delta = (do.float() * o.float()).sum(-1)
+    q, k, v, o, do, lse = _bwd_inputs(t, d, dtype, t * 1000 + d, kv_len=kv_len)
     before = dict(_kernels.LAUNCHES)
-    got = (_kernels.flash_attn_bwd_dq(q, k, v, do, lse, delta, kv_len),
-           *_kernels.flash_attn_bwd_dkv(q, k, v, do, lse, delta, kv_len))
+    dq, delta = _kernels.flash_attn_bwd_dq(q, k, v, o, do, lse, kv_len)
+    got = (dq, *_kernels.flash_attn_bwd_dkv(q, k, v, do, lse, delta, kv_len))
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES["flash_attn_bwd_dq"] == before["flash_attn_bwd_dq"] + 1
     assert _kernels.LAUNCHES["flash_attn_bwd_dkv"] == before["flash_attn_bwd_dkv"] + 1
-    want = (PA.flash_bwd_dq_reference(q, k, v, do, lse, delta, kv_len),
-            *PA.flash_bwd_dkv_reference(q, k, v, do, lse, delta, kv_len))
+    want_dq, want_delta = PA.flash_bwd_dq_delta_reference(q, k, v, o, do, lse, kv_len)
+    want = (want_dq, *PA.flash_bwd_dkv_reference(q, k, v, do, lse, want_delta, kv_len))
+    assert delta.dtype == torch.float32 and delta.shape == (2, 4, t)
+    assert (delta - want_delta).abs().max().item() <= _tol_delta(o, do)
     for a, b in zip(got, want):
         assert a.dtype == dtype
         tol = 2e-5 + (0.0 if dtype == torch.float32
@@ -113,6 +130,101 @@ def test_dkv_kernel_is_deterministic(t, kv_len):
     second = _kernels.flash_attn_bwd_dkv(q, k, v, do, lse, delta, kv_len)
     torch.cuda.synchronize()
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("t,kv_len", [(199, None), (257, 250)])
+def test_dq_kernel_is_deterministic(dtype, t, kv_len):
+    """dq and D use no atomics: two launches on the same inputs agree bit for bit."""
+    _need_card()
+    q, k, v, o, do, lse = _bwd_inputs(t, 64, dtype, t, h=16, kv_len=kv_len)
+    first = _kernels.flash_attn_bwd_dq(q, k, v, o, do, lse, kv_len)
+    second = _kernels.flash_attn_bwd_dq(q, k, v, o, do, lse, kv_len)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t,kv_len", [(199, None), (201, 188), (1024, 1011)])
+def test_dkv_fed_the_kernel_delta_matches_dkv_fed_torch_delta(t, kv_len):
+    """The D the dq kernel writes against torch's rowsum(dO * O) as the
+    dk/dv kernel's input: the two differ by fp32 summation order, which can
+    flip a bf16 rounding of dS, so dk and dv agree within one bf16 step of
+    their largest magnitude."""
+    _need_card()
+    q, k, v, o, do, lse = _bwd_inputs(t, 64, torch.bfloat16, t + 7, h=16, kv_len=kv_len)
+    _, delta = _kernels.flash_attn_bwd_dq(q, k, v, o, do, lse, kv_len)
+    got = _kernels.flash_attn_bwd_dkv(q, k, v, do, lse, delta, kv_len)
+    want = _kernels.flash_attn_bwd_dkv(q, k, v, do, lse, PA._delta(o, do), kv_len)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        tol = 2.0 ** -7 * b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_autograd_on_the_card_runs_dq_then_dkv_and_no_torch_delta(dtype, monkeypatch):
+    """The backward on CUDA tensors is the two kernels alone: D comes from
+    the dq kernel, never from ``_delta``'s torch reduction."""
+    _need_card()
+
+    def no_delta(*args):
+        raise AssertionError("_delta ran on the card")
+
+    monkeypatch.setattr(PA, "_delta", no_delta)
+    x = [a.requires_grad_() for a in _bwd_inputs(201, 64, dtype, 11, kv_len=188)[:3]]
+    out = PA.self_attention(*x, kv_len=188)
+    _kernels.reset_launches()
+    grads = torch.autograd.grad(out, x, torch.randn_like(out))
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES == {"flash_attn_fwd": 0, "flash_attn_bwd_dq": 1,
+                                 "flash_attn_bwd_dkv": 1}
+    assert all(torch.isfinite(g).all() for g in grads)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["flash_attn_fwd", "flash_attn_bwd_dq", "flash_attn_bwd_dkv"])
+def test_kernels_launch_as_the_first_cuda_work_of_a_thread(kernel):
+    """A new thread has no current CUDA context until something makes one
+    current, and the tensor-map encoder needs one; PyTorch's autograd worker
+    meets the dq kernel in that state.  Each bf16 kernel launches from a
+    fresh thread all the same."""
+    _need_card()
+    q, k, v, o, do, lse = _bwd_inputs(199, 64, torch.bfloat16, 5, h=16)
+    delta = PA._delta(o, do)
+    calls = {"flash_attn_fwd": lambda: _kernels.flash_attn_fwd(q, k, v),
+             "flash_attn_bwd_dq": lambda: _kernels.flash_attn_bwd_dq(q, k, v, o, do, lse),
+             "flash_attn_bwd_dkv": lambda: _kernels.flash_attn_bwd_dkv(q, k, v, do, lse, delta)}
+    want = calls[kernel]()
+    got = {}
+
+    def run():
+        try:
+            got["out"] = calls[kernel]()
+            torch.cuda.synchronize()
+        except Exception as e:  # handed to the test's thread
+            got["error"] = e
+
+    worker = threading.Thread(target=run)
+    worker.start()
+    worker.join()
+    assert "error" not in got, got.get("error")
+    assert all(torch.equal(a, b) for a, b in zip(got["out"], want))
+
+
+@pytest.mark.gpu
+def test_dq_kernel_refuses_an_output_that_is_not_contiguous():
+    """The saved O reaches the kernel as it is: a strided O raises, and is
+    never copied on the way."""
+    _need_card()
+    q, k, v, o, do, lse = _bwd_inputs(64, 64, torch.bfloat16, 3)
+    strided = o.transpose(1, 2).contiguous().transpose(1, 2)
+    before = dict(_kernels.LAUNCHES)
+    with pytest.raises(ValueError, match="O must be contiguous"):
+        _kernels.flash_attn_bwd_dq(q, k, v, strided, do, lse)
+    assert _kernels.LAUNCHES == before
 
 
 @pytest.mark.gpu
