@@ -30,6 +30,15 @@ Phases, each of which fails the script with a non-zero exit:
    impl='reference'; then ``Engine.fit`` of the conf-3 model (bf16, remat
    'attn') for one epoch of three [2, 11, 64000] steps and one dev batch,
    with every metric finite and the launch counts the remat policy implies;
+   then the training CLI (no mode flag) in-process at XLS-R 300M with
+   ``configs/conf-3-linear.yaml`` verbatim but for its three paths, on a
+   database written in a temporary directory (8 train and 2 dev anchors of
+   48000-80000 samples, three vocoded copies each, noise and RIR files):
+   4 train steps and 1 dev step with host augmentation, launches 216 / 96
+   / 96, finite ``metrics.jsonl``, and ``last.ckpt`` loaded into a fresh
+   model scoring exactly as the trained one; it prints the CLI's wall time
+   and ms per step, the host's ms per 11-view group, peak memory and each
+   checkpoint's size and write time;
 6. times: CUDA-event times of each kernel at the training shape [22, 16,
    199, 64] bf16 (the forward also at the eval shape [16, 16, 201, 64]),
    replayed from a CUDA graph, best of two, with its eager time beside it;
@@ -49,7 +58,7 @@ input, its ``ms_before`` is that kernel and torch's D as one graphed
 callable, so that both times cover the same work.
 
 The JSON object with one entry per kernel comes two lines before the last
-(launches counted on the training path, with each path's counts under
+(launches counted on the training CLI's path, with each path's counts under
 ``launches_by_path``; times at the training shape, ``ms`` = ``graph_ms``,
 with ``eager_ms`` and ``ms_before``; the forward's eval-shape times under
 ``eval``), then the card's name and power limit, and the last line
@@ -74,6 +83,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 GOLDEN_CKPT = os.path.join(ROOT, "tests", "golden", "mini_linear_nll.ckpt")
 GOLDEN_SCORES = os.path.join(ROOT, "tests", "golden", "expected_scores.txt")
 EVAL_CONFIG = os.path.join(ROOT, "configs", "conf-eval-only.yaml")
+CONF3_CONFIG = os.path.join(ROOT, "configs", "conf-3-linear.yaml")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, dense bf16 rate
 HBM_BYTES_PER_S = 3.35e12
@@ -675,6 +685,183 @@ def phase_train_main_path(K, card):
     return launches
 
 
+CLI_DB = dict(train=8, dev=2, min_len=48000, max_len=80000, seed=2024,
+              vocoders=("hifigan", "hn-sinc-nsf-hifi", "waveglow"))
+
+
+def _cli_database(root):
+    """8 train and 2 dev bonafide anchors of 48000-80000 samples (both the
+    pad and the random-crop branch of ``multiview_pad``), three vocoded
+    copies of each, two noise files and two decaying RIRs of 0.3-0.5 s, the
+    scp lists, and conf-3's YAML with only its three paths changed."""
+    from scl_deepfake_audio_detection_torch.utils.audio_io import save_wav
+
+    c = CLI_DB
+    rng = np.random.default_rng(c["seed"])
+    n = c["train"] + c["dev"]
+    utts = [f"anchor{i:02d}.wav" for i in range(n)]
+    lengths = np.linspace(c["min_len"], c["max_len"], n).astype(int)
+    rng.shuffle(lengths)
+    for u, t in zip(utts, lengths):
+        save_wav(os.path.join(root, "bonafide", u), (0.1 * rng.normal(size=t)).astype(np.float32))
+        for v in c["vocoders"]:
+            save_wav(os.path.join(root, "vocoded", f"{v}_{u}"),
+                     (0.1 * rng.normal(size=t)).astype(np.float32))
+    for i, secs in enumerate((0.3, 0.5)):
+        t = int(16000 * secs)
+        save_wav(os.path.join(root, "musan", f"noise{i}.wav"),
+                 (0.05 * rng.normal(size=4 * t)).astype(np.float32))
+        decay = np.exp(-np.arange(t) / (0.05 * 16000 * (i + 1)))
+        save_wav(os.path.join(root, "rirs", f"rir{i}.wav"),
+                 (0.9 * decay * rng.normal(size=t)).astype(np.float32))
+    os.makedirs(os.path.join(root, "scp"), exist_ok=True)
+    with open(os.path.join(root, "scp", "train_bonafide.lst"), "w") as f:
+        f.write("\n".join(utts[:c["train"]]) + "\n")
+    with open(os.path.join(root, "scp", "dev_bonafide.lst"), "w") as f:
+        f.write("\n".join(utts[c["train"]:]) + "\n")
+    with open(CONF3_CONFIG) as f:
+        text = f.read()
+    paths = {"noise_path": os.path.join(root, "musan"), "rir_path": os.path.join(root, "rirs"),
+             "aug_dir": os.path.join(root, "aug")}
+    for key, value in paths.items():
+        lines = [ln for ln in text.splitlines() if ln.strip().startswith(f"{key}:")]
+        if len(lines) != 1:
+            raise AssertionError(f"{CONF3_CONFIG} has {len(lines)} {key} lines")
+        text = text.replace(lines[0], lines[0].split(":")[0] + f": '{value}'")
+    cfg = os.path.join(root, "conf-3-linear.yaml")
+    with open(cfg, "w") as f:
+        f.write(text)
+    return cfg, utts
+
+
+def phase_train_cli(K, card, tmp):
+    """The port's CLI training mode in-process at XLS-R 300M with conf-3
+    verbatim (V = 11, trim 64000) on a database written here: 4 train steps
+    of 2 anchor groups and 1 dev step, host augmentation in TrainLoader.
+    Then last.ckpt is loaded into a fresh model, which must score a batch
+    exactly as the trained one; and the host's time to build one group."""
+    from scl_deepfake_audio_detection_torch import cli
+    from scl_deepfake_audio_detection_torch.data import protocols
+    from scl_deepfake_audio_detection_torch.data.datasets import (
+        SCLViewBatchBuilder, resources_from_config, spec_from_config)
+    from scl_deepfake_audio_detection_torch.data.loader import TrainLoader
+    from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.train import checkpoint as ckpt
+    from scl_deepfake_audio_detection_torch.train import engine as E
+    from scl_deepfake_audio_detection_torch.utils.config import load_config
+    from scl_deepfake_audio_detection_torch.utils.registry import MODELS
+
+    db, out = os.path.join(tmp, "db"), os.path.join(tmp, "out")
+    cfg_path, utts = _cli_database(db)
+    argv = ["--config", cfg_path, "--database_path", db, "--ssl_preset", "xlsr_300m",
+            "--compute_dtype", "bfloat16", "--batch_size", "2", "--num_epochs", "1",
+            "--device", "cuda", "--out_dir", out]
+    workers = cli.build_parser().parse_args(argv).num_workers
+
+    # observe the run without changing it: the engine (to score with its
+    # model afterwards), each train step's end, each checkpoint write
+    seen = {"engine": None, "step_end": [], "writes": []}
+    fit, step, write = E.Engine.fit, E.Engine.train_step, ckpt._write_flat
+
+    def fit_hook(self, *a, **kw):
+        seen["engine"] = self
+        return fit(self, *a, **kw)
+
+    def step_hook(self, *a, **kw):
+        m = step(self, *a, **kw)
+        torch.cuda.synchronize()
+        seen["step_end"].append(time.perf_counter())
+        return m
+
+    def write_hook(path, flat, extra):
+        t0 = time.perf_counter()
+        write(path, flat, extra)
+        seen["writes"].append((os.path.basename(path), time.perf_counter() - t0))
+
+    E.Engine.fit, E.Engine.train_step, ckpt._write_flat = fit_hook, step_hook, write_hook
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        E.Engine.fit, E.Engine.train_step, ckpt._write_flat = fit, step, write
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    if rc != 0:
+        raise AssertionError(f"the training CLI exited {rc}")
+    layers = XLSRConfig.xlsr_300m().encoder_layers
+    steps, dev_steps = CLI_DB["train"] // 2, -(-CLI_DB["dev"] // 2)
+    want = {"flash_attn_fwd": 2 * layers * steps + layers * dev_steps,
+            "flash_attn_bwd_dq": layers * steps, "flash_attn_bwd_dkv": layers * steps}
+    ends = seen["step_end"]
+    per_step = (ends[-1] - ends[0]) / (len(ends) - 1) * 1e3 if len(ends) > 1 else float("nan")
+    print(f"[train-cli] {card}: CLI training, XLS-R 300M + LinearNLL bf16 remat 'attn', "
+          f"conf-3 (V = 11, trim 64000), {steps} steps of 2 groups + {dev_steps} dev step: "
+          f"{wall:.2f}s wall (model build, checkpoint writes included), "
+          f"{per_step:.2f} ms/step after the first, peak memory {peak / 2**30:.3f} GiB")
+    print(f"[train-cli] launches {launches}, expected {want}")
+    if len(ends) != steps or launches != want:
+        raise AssertionError(f"{len(ends)} train steps and launches {launches}; "
+                             f"expected {steps} and {want}")
+    run_dir = os.path.join(out, os.listdir(out)[0])
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(ln) for ln in f]
+    nums = {k: v for k, v in recs[0].items() if isinstance(v, (int, float))} if recs else {}
+    print("[train-cli] metrics.jsonl: " + ", ".join(f"{k} {v:.6g}" for k, v in nums.items()))
+    if len(recs) != 1 or not all(np.isfinite(v) for v in nums.values()):
+        raise AssertionError(f"metrics.jsonl: {recs}")
+    for name, secs in seen["writes"]:
+        size = os.path.getsize(os.path.join(run_dir, name))
+        print(f"[train-cli] checkpoint {name}: {size / 2**30:.3f} GiB written in {secs:.2f}s")
+    if "last.ckpt" not in [n for n, _ in seen["writes"]]:
+        raise AssertionError("no last.ckpt written")
+
+    # last.ckpt -> a fresh model through load_train_state scores as the trained one
+    eng = seen["engine"]
+    cfg = load_config(cfg_path)
+    ssl = XLSRConfig.xlsr_300m(compute_dtype="bfloat16", remat=True)
+    fresh = E.Engine(MODELS.get(cfg.model.name).from_config(cfg.model, ssl=ssl, device="cuda",
+                                                            seed=99), eng.cfg)
+    fresh.init_state()
+    t1 = time.perf_counter()
+    epoch, _, _ = ckpt.load_train_state(os.path.join(run_dir, "last.ckpt"), fresh.model,
+                                        fresh.optimizer)
+    load_s = time.perf_counter() - t1
+    wav = (0.1 * np.random.default_rng(3).normal(size=(4, 64000))).astype(np.float32)
+    same = torch.equal(E.score_step(eng.model, wav), E.score_step(fresh.model, wav))
+    print(f"[train-cli] last.ckpt (epoch {epoch}) loaded into a fresh model in {load_s:.2f}s; "
+          f"identical scores {same}")
+    if not same or not isinstance(fresh.model, LinearNLL):
+        raise AssertionError("last.ckpt does not reproduce the trained model")
+    del eng, fresh, seen
+    torch.cuda.empty_cache()
+
+    # the host's share: one 11-view group alone, then through TrainLoader
+    spec = spec_from_config(cfg.data.name, cfg.data.kwargs)
+    spec.repeat_pad = False  # the CLI's --padding_type zero
+    res = resources_from_config(cfg.data.kwargs, cfg.rawboost)
+    _, files = protocols.gen_list_scl(db, "train")
+    builder = SCLViewBatchBuilder(spec, db, files, res, seed=1234)
+    t1 = time.perf_counter()
+    for i in range(len(files)):
+        _, views, _ = builder.build(i, 0)
+    alone = (time.perf_counter() - t1) / len(files) * 1e3
+    t1 = time.perf_counter()
+    n = sum(b["wav"].shape[0] for b in TrainLoader(builder, 2, num_workers=workers).epoch(0))
+    loader = (time.perf_counter() - t1) / n * 1e3
+    print(f"[train-cli] host, {os.cpu_count()} cores: one {views.shape[0]}-view group "
+          f"[{views.shape[0]}, {views.shape[1]}] takes {alone:.1f} ms in "
+          f"SCLViewBatchBuilder.build alone, {loader:.1f} ms per group through TrainLoader "
+          f"(2 groups a step, --num_workers {workers}): {2 * loader:.1f} ms of host work "
+          f"per step against the CLI's {per_step:.1f} ms per step")
+    return launches
+
+
 def _bound(nbytes, flops):
     bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
     return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations", \
@@ -797,12 +984,17 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches = phase_train_main_path(K, card)
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_launches = phase_train_cli(K, card, tmp)
+    torch.cuda.empty_cache()
     times = phase_backward_times(K, A, card, KB)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f}s; launches on the "
-          f"eval main path {eval_launches}, on the training main path {launches}")
-    # Each entry's launches and times belong to this slice's main path,
-    # training: counted in the fit run, timed at its shape.  The eval path's
-    # launches sit beside them, and the forward's eval-shape times under "eval".
+          f"eval main path {eval_launches}, on the training main path {launches}, "
+          f"through the training CLI {cli_launches}")
+    # Each entry's launches belong to this slice's main path, the training
+    # CLI; its times to that path's shape (the fit run's, [22, 16, 199, 64]).
+    # The other paths' launches sit beside them, and the forward's
+    # eval-shape times under "eval".
     kernels = []
     for name in K.KERNELS:
         entry = {
@@ -810,9 +1002,10 @@ def main() -> int:
             "route": "cuda",
             "source": f"scl_deepfake_audio_detection_torch/csrc/{K.SOURCES[name]}",
             "replaces": REPLACES[name],
-            "path": "train",
-            "launches": launches[name],
-            "launches_by_path": {"eval": eval_launches[name], "train": launches[name]},
+            "path": "train_cli",
+            "launches": cli_launches[name],
+            "launches_by_path": {"eval": eval_launches[name], "train": launches[name],
+                                 "train_cli": cli_launches[name]},
             **times[name],
         }
         if name == "flash_attn_fwd":

@@ -1,0 +1,28 @@
+"""What the per-mode CLI modules share."""
+
+from __future__ import annotations
+
+from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+from scl_deepfake_audio_detection_torch.utils.registry import MODELS
+
+
+class CliError(Exception):
+    """A usage failure: ``main`` prints ``message`` to stderr and exits with
+    ``code`` (2 for a usage error, as argparse)."""
+
+    def __init__(self, code: int, message: str):
+        super().__init__(message)
+        self.code = code
+        self.message = message
+
+
+def _build_model(args, cfg, device):
+    """The configured model at ``--ssl_preset`` on ``device``, with remat
+    (the 'attn' policy) as the JAX CLI builds it, parameters from
+    ``--seed``."""
+    try:
+        cls = MODELS.get(cfg.model.name)
+    except (KeyError, NotImplementedError) as e:
+        raise CliError(2, str(e).strip("'\""))
+    ssl = getattr(XLSRConfig, args.ssl_preset)(compute_dtype=args.compute_dtype, remat=True)
+    return cls.from_config(cfg.model, ssl=ssl, device=device, seed=args.seed)

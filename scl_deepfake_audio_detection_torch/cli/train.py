@@ -1,0 +1,96 @@
+"""Training CLI modes: SCL view-batch training with early stopping and
+full-state checkpoints (the reference ``02_train.sh`` flow), and
+``--show_params``.
+
+Counterpart of ``scl_deepfake_audio_detection_tpu/cli/train.py`` with host
+augmentation: ``SCLViewBatchBuilder`` composes each anchor group in numpy
+on ``TrainLoader``'s worker threads, and ``Engine.fit`` trains on the
+device.  It prints the JAX CLI's lines: trial counts, the model tag, one
+line per epoch and the total time.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+from scl_deepfake_audio_detection_torch.cli.common import _build_model
+from scl_deepfake_audio_detection_torch.cli.context import RunContext
+
+
+def run_show_params(args, ctx: RunContext) -> int:
+    """--show_params: the per-leaf parameter table of the configured model,
+    built on the ``meta`` device (shapes only, no memory touched)."""
+    from scl_deepfake_audio_detection_torch.models.params import to_jax
+    from scl_deepfake_audio_detection_torch.ops.layers import param_table
+
+    model = _build_model(args, ctx.cfg, "meta")
+    print(param_table(to_jax(model, host=False)))
+    return 0
+
+
+def run(args, ctx: RunContext) -> int:
+    """Training over the SCL pipeline."""
+    from scl_deepfake_audio_detection_torch.data import protocols
+    from scl_deepfake_audio_detection_torch.data.datasets import (
+        SCLViewBatchBuilder,
+        resources_from_config,
+        spec_from_config,
+    )
+    from scl_deepfake_audio_detection_torch.data.loader import TrainLoader
+    from scl_deepfake_audio_detection_torch.train.tblog import tensorboard_available
+
+    cfg, train_cfg, engine = ctx.cfg, ctx.train_cfg, ctx.engine
+    spec = spec_from_config(cfg.data.name, cfg.data.kwargs)
+    if spec is None:
+        print("config's dataset is eval-only; pass --eval", file=sys.stderr)
+        return 2
+    # the flag overrides the dataset's repeat_pad, as the reference passes
+    # padding_type into every Dataset_for (main.py:375)
+    spec.repeat_pad = args.padding_type == "repeat"
+    res = resources_from_config(cfg.data.kwargs, cfg.rawboost)
+
+    _, file_train = protocols.gen_list_scl(args.database_path, "train")
+    _, file_dev = protocols.gen_list_scl(args.database_path, "dev")
+    print(f"no. of training trials {len(file_train)}")
+    print(f"no. of validation trials {len(file_dev)}")
+
+    groups = args.groups_per_step or max(args.batch_size, 1)
+    train_loader = TrainLoader(
+        SCLViewBatchBuilder(spec, args.database_path, file_train, res, seed=args.seed),
+        groups, shuffle=True, num_workers=args.num_workers, seed=args.seed)
+    dev_loader = TrainLoader(
+        SCLViewBatchBuilder(spec, args.database_path, file_dev, res, seed=args.seed + 1),
+        groups, shuffle=False, drop_last=False, num_workers=args.num_workers,
+        seed=args.seed)
+
+    save_dir = os.path.join(args.out_dir, train_cfg.model_tag())
+    os.makedirs(save_dir, exist_ok=True)
+    print(f"model tag: {train_cfg.model_tag()}")
+    tb_dir = args.tensorboard_dir or os.path.join(save_dir, "logs")
+    print(f"tensorboard scalars: {tb_dir}" if tensorboard_available() else
+          "tensorboard scalars: not written (torch.utils.tensorboard does not import)")
+
+    epoch_counter = {"n": train_cfg.start_epoch}
+
+    def train_batches():
+        e = epoch_counter["n"]
+        epoch_counter["n"] += 1
+        return train_loader.epoch(e)
+
+    def log_fn(epoch, record):
+        eer = record.get("val_eer")  # under --early_metric eer; None for one class
+        eer_s = f"val_eer={eer:.2f}% " if isinstance(eer, float) else ""
+        print(f"epoch {epoch}: lr={record['lr']:.3g} "
+              f"train_loss={record.get('train_loss', float('nan')):.4f} "
+              f"val_loss={record.get('val_loss', float('nan')):.4f} "
+              f"val_acc={record.get('val_accuracy', float('nan')):.4f} "
+              f"{eer_s}({record['seconds']:.1f}s)")
+
+    t0 = time.time()
+    engine.fit(train_batches, lambda: dev_loader.epoch(0), save_dir=save_dir,
+               log_fn=log_fn, tensorboard_dir=tb_dir, profile_dir=args.profile_dir,
+               resume_best=ctx.resume_best, resume_counter=ctx.resume_counter)
+    print(f"Total training time: {time.time() - t0}s")
+    return 0

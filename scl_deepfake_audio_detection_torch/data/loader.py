@@ -1,10 +1,13 @@
-"""Eval batches built ahead of the device in a producer thread.
+"""Host data pipeline: batches built ahead of the device in a producer
+thread.
 
-Counterpart of ``EvalLoader`` in
-``scl_deepfake_audio_detection_tpu/data/loader.py``: fixed batch shape (the
-final short batch is padded with zero rows, which the writer drops through
-the utt list length) and an optional int16 PCM wire format, which halves
-the host -> device bytes and is lossless for 16-bit audio.
+Counterpart of ``TrainLoader`` and ``EvalLoader`` in
+``scl_deepfake_audio_detection_tpu/data/loader.py``.  Items (audio IO and
+DSP; numpy releases the GIL) are built in a thread pool and assembled in
+index order, ``prefetch`` batches ahead of the consumer.  Batches stay
+numpy; ``Engine.place_batch`` moves them to the card.  A worker's error is
+raised in the consumer, and a consumer that leaves early stops the
+producer.
 """
 
 from __future__ import annotations
@@ -12,10 +15,11 @@ from __future__ import annotations
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, Dict, Iterator
 
 import numpy as np
 
-from scl_deepfake_audio_detection_torch.data.datasets import EvalDataset
+from scl_deepfake_audio_detection_torch.data.datasets import EvalDataset, SCLViewBatchBuilder
 from scl_deepfake_audio_detection_torch.utils.audio_io import pcm16_encode
 
 
@@ -32,8 +36,98 @@ def _put_or_stop(q: "queue.Queue", item, stop: threading.Event) -> bool:
     return False
 
 
+def _prefetched(produce: Callable[[ThreadPoolExecutor, threading.Event], Iterator],
+                num_workers: int, prefetch: int) -> Iterator:
+    """Run the generator ``produce(pool, stop)`` in a producer thread and
+    yield its items from a queue of ``prefetch``."""
+    out_q: "queue.Queue" = queue.Queue(maxsize=prefetch)
+    stop = threading.Event()
+
+    def producer():
+        try:
+            with ThreadPoolExecutor(num_workers) as pool:
+                items = produce(pool, stop)
+                try:
+                    for item in items:
+                        if stop.is_set() or not _put_or_stop(out_q, item, stop):
+                            return
+                finally:
+                    items.close()
+            _put_or_stop(out_q, None, stop)
+        except BaseException as e:  # handed to the consumer, which raises it
+            _put_or_stop(out_q, e, stop)
+
+    threading.Thread(target=producer, daemon=True).start()
+    try:
+        while True:
+            item = out_q.get()
+            if item is None:
+                return
+            if isinstance(item, BaseException):
+                raise item
+            yield item
+    finally:
+        stop.set()
+
+
+class TrainLoader:
+    """Yields {'wav': [G, V, T], 'labels': [G, V], 'utts': list} per step."""
+
+    def __init__(self, builder: SCLViewBatchBuilder, groups_per_step: int = 1,
+                 shuffle: bool = True, drop_last: bool = True, num_workers: int = 4,
+                 seed: int = 1234, prefetch: int = 2, shard_index: int = 0,
+                 num_shards: int = 1):
+        """``shard_index``/``num_shards``: every process draws the same
+        seeded global order and keeps its stride slice."""
+        self.builder = builder
+        self.groups = groups_per_step
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.num_workers = max(1, num_workers)
+        self.seed = seed
+        self.prefetch = prefetch
+        self.shard_index = shard_index
+        self.num_shards = max(1, num_shards)
+
+    def __len__(self) -> int:
+        n = len(self.builder) // self.num_shards
+        return n // self.groups if self.drop_last else -(-n // self.groups)
+
+    def _epoch_order(self, epoch: int) -> np.ndarray:
+        """The seeded global order, this shard's stride slice of it, cut to
+        floor(N / num_shards) so that every shard takes the same number of
+        steps."""
+        order = np.arange(len(self.builder))
+        if self.shuffle:
+            np.random.default_rng(np.random.SeedSequence([self.seed, epoch])).shuffle(order)
+        if self.num_shards > 1:
+            common = len(order) // self.num_shards
+            order = order[self.shard_index :: self.num_shards][:common]
+        if self.drop_last:
+            order = order[: len(order) - len(order) % self.groups]
+        return order
+
+    def epoch(self, epoch: int = 0) -> Iterator[Dict]:
+        order = self._epoch_order(epoch)
+        steps = [order[i : i + self.groups] for i in range(0, len(order), self.groups)]
+
+        def produce(pool, stop):
+            for step_idx in steps:
+                if stop.is_set():
+                    return
+                items = list(pool.map(lambda i: self.builder.build(int(i), epoch), step_idx))
+                yield {"wav": np.stack([w for _, w, _ in items]),
+                       "labels": np.stack([l for _, _, l in items]),
+                       "utts": [u for u, _, _ in items]}
+
+        return _prefetched(produce, self.num_workers, self.prefetch)
+
+
 class EvalLoader:
-    """Yields (wav [B, cut], utt_ids)."""
+    """Yields (wav [B, cut], utt_ids) at a fixed batch shape: the final
+    short batch is padded with zero rows, which the writer drops through the
+    length of the utt list.  ``wire_dtype='int16'`` ships PCM16, half the
+    host -> device bytes and lossless for 16-bit audio."""
 
     def __init__(self, dataset: EvalDataset, batch_size: int = 32,
                  num_workers: int = 4, pad_final: bool = True,
@@ -51,39 +145,18 @@ class EvalLoader:
         return -(-len(self.ds) // self.bs)
 
     def __iter__(self):
-        out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
-        stop = threading.Event()
-
-        def producer():
-            try:
-                with ThreadPoolExecutor(self.num_workers) as pool:
-                    for i in range(0, len(self.ds), self.bs):
-                        if stop.is_set():
-                            return
-                        chunk = range(i, min(i + self.bs, len(self.ds)))
-                        items = list(pool.map(self.ds.get, chunk))
-                        wav = np.stack([w for w, _ in items])
-                        utts = [u for _, u in items]
-                        if self.pad_final and len(chunk) < self.bs:
-                            pad = np.zeros((self.bs - len(chunk), wav.shape[1]), wav.dtype)
-                            wav = np.concatenate([wav, pad])
-                        if self.wire_dtype == "int16":
-                            wav = pcm16_encode(wav)
-                        if not _put_or_stop(out_q, (wav, utts), stop):
-                            return
-                _put_or_stop(out_q, None, stop)
-            except BaseException as e:  # handed to the consumer, which raises it
-                _put_or_stop(out_q, e, stop)
-
-        t = threading.Thread(target=producer, daemon=True)
-        t.start()
-        try:
-            while True:
-                item = out_q.get()
-                if item is None:
+        def produce(pool, stop):
+            for i in range(0, len(self.ds), self.bs):
+                if stop.is_set():
                     return
-                if isinstance(item, BaseException):
-                    raise item
-                yield item
-        finally:
-            stop.set()
+                chunk = range(i, min(i + self.bs, len(self.ds)))
+                items = list(pool.map(self.ds.get, chunk))
+                wav = np.stack([w for w, _ in items])
+                if self.pad_final and len(chunk) < self.bs:
+                    pad = np.zeros((self.bs - len(chunk), wav.shape[1]), wav.dtype)
+                    wav = np.concatenate([wav, pad])
+                if self.wire_dtype == "int16":
+                    wav = pcm16_encode(wav)
+                yield wav, [u for _, u in items]
+
+        return _prefetched(produce, self.num_workers, self.prefetch)

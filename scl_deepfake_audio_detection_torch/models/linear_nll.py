@@ -25,6 +25,7 @@ from scl_deepfake_audio_detection_torch.ops.layers import dropout, leaky_relu
 from scl_deepfake_audio_detection_torch.ops.losses import nll_on_log_probs
 from scl_deepfake_audio_detection_torch.ops.supcon import seq_similarity, supcon_loss
 from scl_deepfake_audio_detection_torch.utils.device import resolve_device
+from scl_deepfake_audio_detection_torch.utils.registry import MODELS
 
 
 class Backend(nn.Module):
@@ -34,10 +35,11 @@ class Backend(nn.Module):
         self.out = Linear(emb_dim, num_classes)
 
 
+@MODELS.register("xlsr_linear_nll", aliases=("wav2vec2_linear_nll",))
 class LinearNLL(nn.Module):
     """Parameters are made on ``device`` (the card unless the caller passes
     ``device="cpu"``) and filled from a ``torch.Generator`` seeded with
-    ``seed`` (see ``init``)."""
+    ``seed`` (see ``init``).  On ``device="meta"`` they have shapes only."""
 
     def __init__(self, ssl: Optional[X.XLSRConfig] = None, emb_dim: int = 128,
                  num_classes: int = 2, mlp_layers: int = 3, dropout: float = 0.5,
@@ -70,6 +72,8 @@ class LinearNLL(nn.Module):
         """Fill every parameter from a ``torch.Generator`` on the model's
         device seeded with ``seed``."""
         device = self.ll.weight.device
+        if device.type == "meta":
+            return self
         return init_parameters(self, torch.Generator(device=device).manual_seed(seed))
 
     def apply(self, wav: torch.Tensor, train: bool = False,

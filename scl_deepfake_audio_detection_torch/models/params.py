@@ -91,12 +91,14 @@ def load_jax_params(model: nn.Module, tree) -> nn.Module:
     return model
 
 
-def to_jax(model: nn.Module):
-    """The model's parameters as a JAX parameter tree of fp32 numpy arrays:
-    linear ``w`` [in, out], conv ``w`` [K, Cin/groups, Cout], layer norm
-    ``scale``/``bias``, the encoder layers stacked into [L, ...] leaves."""
-    flat: Dict[tuple, np.ndarray] = {}
-    stacked: Dict[tuple, Dict[int, np.ndarray]] = {}
+def to_jax(model: nn.Module, host: bool = True):
+    """The model's parameters as a JAX parameter tree: linear ``w`` [in,
+    out], conv ``w`` [K, Cin/groups, Cout], layer norm ``scale``/``bias``,
+    the encoder layers stacked into [L, ...] leaves.  Leaves are fp32 numpy
+    arrays, or with ``host=False`` tensors on the model's device (shapes
+    only on ``meta``)."""
+    flat: Dict[tuple, object] = {}
+    stacked: Dict[tuple, Dict[int, object]] = {}
     for prefix, m in model.named_modules():
         if not isinstance(m, (Linear, Conv1d, LayerNorm)):
             continue
@@ -106,15 +108,17 @@ def to_jax(model: nn.Module):
             t = getattr(m, attr)
             if t is None:
                 continue
-            arr = t.detach().float().cpu().numpy()
+            t = t.detach()
             if leaf == "w":
-                arr = arr.T if arr.ndim == 2 else arr.transpose(2, 1, 0)
+                t = t.t() if t.ndim == 2 else t.permute(2, 1, 0)
+            arr = np.ascontiguousarray(t.float().cpu().numpy()) if host else t
             path = tuple(prefix.split(".")) + (leaf,)
             n = _stack_end(path)
             if n:
                 stacked.setdefault(path[:n] + path[n + 1:], {})[int(path[n])] = arr
             else:
-                flat[path] = np.ascontiguousarray(arr)
+                flat[path] = arr
+    stack = np.stack if host else torch.stack
     for path, per in stacked.items():
-        flat[path] = np.stack([per[i] for i in range(len(per))])
+        flat[path] = stack([per[i] for i in range(len(per))])
     return unflatten({SEP.join(p): a for p, a in flat.items()})

@@ -145,3 +145,43 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     else:
         y = F.conv1d(xc, w, bias, stride=stride, groups=groups, dilation=dilation)
     return y.transpose(1, 2)
+
+
+def _keyed_leaves(tree, path: str = ""):
+    """(JAX ``keystr`` path, leaf) pairs in ``jax.tree_util``'s order: dict
+    keys sorted, list items in order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _keyed_leaves(tree[k], f"{path}[{k!r}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _keyed_leaves(v, f"{path}[{i}]")
+    else:
+        yield path, tree
+
+
+def _size(leaf) -> int:
+    n = 1
+    for d in leaf.shape:
+        n *= int(d)
+    return n
+
+
+def param_count(params) -> int:
+    """Parameters in a tree whose leaves have a ``shape`` (numpy arrays,
+    tensors, ``meta`` tensors)."""
+    return sum(_size(v) for _, v in _keyed_leaves(params))
+
+
+def param_table(params) -> str:
+    """Per-leaf table of a JAX-layout parameter tree: path, count, share,
+    shape, as the JAX package prints it (the reference's
+    ``core_scripts/other_tools/script_model_para.py:26-43``)."""
+    leaves = list(_keyed_leaves(params))
+    total = sum(_size(v) for _, v in leaves)
+    lines = [f"Parameter number: {total:d}"]
+    for name, v in leaves:
+        n = _size(v)
+        lines.append(f"Layer: {name}\tPara. num: {n:<10d} "
+                     f"({100.0 * n / max(total, 1):04.1f}%)\tShape: {tuple(int(d) for d in v.shape)}")
+    return "\n".join(lines)

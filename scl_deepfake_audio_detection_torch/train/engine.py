@@ -37,6 +37,7 @@ from scl_deepfake_audio_detection_torch.train.optim import (
     make_optimizer,
     set_learning_rate,
 )
+from scl_deepfake_audio_detection_torch.train.tblog import ScalarWriter, trace_epoch
 from scl_deepfake_audio_detection_torch.utils.config import TrainConfig
 
 Batch = Dict[str, Any]
@@ -231,11 +232,10 @@ class Engine:
         dev EER with ``cfg.early_metric='eer'``), ``last.ckpt`` every
         ``ckpt_every`` epochs and at the last or early-stop epoch,
         ``epoch_{n}.ckpt`` on each new best, one ``metrics.jsonl`` line per
-        epoch.  Returns the epoch records."""
-        if tensorboard_dir is not None:
-            raise NotImplementedError("tensorboard_dir not ported yet")
-        if profile_dir is not None:
-            raise NotImplementedError("profile_dir not ported yet")
+        epoch, the same record as tensorboard scalars under
+        ``tensorboard_dir`` (when tensorboard imports), and a
+        ``torch.profiler`` trace of the first epoch under ``profile_dir``.
+        Returns the epoch records."""
         if self.optimizer is None:
             self.init_state()
         cfg = self.cfg
@@ -260,6 +260,7 @@ class Engine:
         metrics_path = os.path.join(save_dir, "metrics.jsonl") if save_dir else None
         if save_dir:
             os.makedirs(save_dir, exist_ok=True)
+        tb = ScalarWriter(tensorboard_dir)
 
         def save(name: str, epoch: int) -> None:
             ckpt.save_train_state(os.path.join(save_dir, name), self.model,
@@ -274,7 +275,8 @@ class Engine:
             lr = cyclic_exp_lr(epoch, cfg.min_lr, cfg.max_lr)
             set_learning_rate(self.optimizer, lr)
             t0 = time.time()
-            train_m = self.run_epoch(train_batches(), epoch)
+            with trace_epoch(profile_dir if epoch == cfg.start_epoch else None):
+                train_m = self.run_epoch(train_batches(), epoch)
             val_eer = None
             if es_metric == "eer":
                 val_m, dev_scores, dev_labels = self.run_validation(
@@ -292,6 +294,7 @@ class Engine:
             if metrics_path:
                 with open(metrics_path, "a") as f:
                     f.write(json.dumps(record) + "\n")
+            tb.scalars(record, epoch)
             if log_fn:
                 log_fn(epoch, record)
 
@@ -311,4 +314,5 @@ class Engine:
                 break
         if writer is not None:
             writer.wait()
+        tb.close()
         return records

@@ -1,10 +1,12 @@
 """Experiment configuration.
 
-The part of a YAML experiment config that eval scoring reads, in the schema
-of the reference configs (``configs/conf-3-linear.yaml``): ``model:`` names
-the model and carries its settings, ``data:`` names the dataset module,
-which decides the database layout (``data/datasets.layout``).  The
-``train:`` and ``rawboost:`` sections come with the training CLI.
+A YAML experiment config in the schema of the reference configs
+(``configs/conf-3-linear.yaml``): ``model:`` names the model and carries its
+settings, ``data:`` names the dataset (``utils/registry.DATASETS``: the
+database layout and the SCL view recipe) and its kwargs, and the optional
+``rawboost:`` section sets the RawBoost knobs, which the CLI's flags then
+override.  The JAX package's ``train:`` section is not read: the CLI builds
+the ``TrainConfig`` from its flags.
 
 ``TrainConfig`` is the port's copy of the JAX package's, with the same
 fields and defaults; ``train/engine.Engine`` reads it.
@@ -12,6 +14,7 @@ fields and defaults; ``train/engine.Engine`` reads it.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional
 
@@ -25,6 +28,33 @@ _MODEL_NAMES = {
     "wav2vec2_resnet_nll": "xlsr_resnet_nll",
     "wav2vec2_btse": "xlsr_btse",
 }
+
+
+@dataclass(frozen=True)
+class RawBoostConfig:
+    """RawBoost DSP knobs, with the names and defaults of the reference CLI
+    flags (``main.py:258-298``)."""
+
+    algo: int = 5
+    # LnL convolutive noise
+    nBands: int = 5
+    minF: int = 20
+    maxF: int = 8000
+    minBW: int = 100
+    maxBW: int = 1000
+    minCoeff: int = 10
+    maxCoeff: int = 100
+    minG: int = 0
+    maxG: int = 0
+    minBiasLinNonLin: int = 5
+    maxBiasLinNonLin: int = 20
+    N_f: int = 5
+    # ISD impulsive noise
+    P: int = 10
+    g_sd: int = 2
+    # SSI additive noise
+    SNRmin: int = 10
+    SNRmax: int = 40
 
 
 @dataclass
@@ -86,6 +116,7 @@ class TrainConfig:
 class Config:
     model: ModelConfig
     data: DataConfig
+    rawboost: RawBoostConfig = field(default_factory=RawBoostConfig)
 
 
 def load_config(path: str) -> Config:
@@ -101,4 +132,13 @@ def load_config(path: str) -> Config:
     )
     d = raw.get("data") or {}
     data = DataConfig(name=d.get("name", "eval_only"), kwargs=dict(d.get("kwargs") or {}))
-    return Config(model=model, data=data)
+    rawboost = RawBoostConfig()
+    if "rawboost" in raw:  # the port's own schema: an unknown key is a typo
+        entries = raw["rawboost"] or {}
+        known = {f.name for f in dataclasses.fields(RawBoostConfig)}
+        unknown = sorted(set(entries) - known)
+        if unknown:
+            raise ValueError(f"unknown rawboost: config keys {unknown}; "
+                             f"valid keys: {sorted(known)}")
+        rawboost = RawBoostConfig(**entries)
+    return Config(model=model, data=data, rawboost=rawboost)

@@ -30,6 +30,12 @@ from scl_deepfake_audio_detection_torch.ops import attention as PA
 
 torch.set_num_threads(2)
 
+# torch 2.13.0+cpu's first multi-threaded ``exp`` in a process can come out
+# ~1e-4 off (relative) in one thread's chunk, and every later call is exact:
+# it made the plain forward's O miss by ~2.5e-5 in one head under xdist.
+# One throwaway call per process, before any test, keeps it out.
+torch.exp(torch.zeros(1 << 20))
+
 
 @pytest.fixture
 def interpret():

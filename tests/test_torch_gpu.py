@@ -11,6 +11,7 @@ sum of n terms is off by at most about n 2^-24 times the sum of their
 magnitudes, so D is held to 1e-5 of the largest row's sum of |dO * O| (n up
 to 128 here)."""
 
+import json
 import os
 import threading
 
@@ -325,3 +326,49 @@ def test_bf16_eval_forward_on_the_card_goes_through_the_kernel(preset):
     assert lp.shape == (4, 2) and np.isfinite(lp).all()
     assert np.abs(np.logaddexp(lp[:, 0], lp[:, 1])).max() < 1e-5
     assert np.abs(lp - scores["reference"]).max() < 5e-2
+
+
+@pytest.mark.gpu
+def test_cli_trains_the_tiny_preset_on_the_card(tmp_path):
+    """The port's CLI, no mode flag, --device cuda: one epoch of two steps
+    and one dev batch.  remat 'attn' recomputes the attention block in the
+    backward, so each train step launches the forward twice per layer and
+    dq and dk/dv once; the dev step launches the forward once per layer."""
+    _need_card()
+    from scl_deepfake_audio_detection_torch.cli import main
+    from scl_deepfake_audio_detection_torch.utils.audio_io import save_wav
+
+    rng = np.random.default_rng(0)
+    utts = [f"u{i}.wav" for i in range(6)]
+    for u in utts:
+        n = int(rng.integers(6000, 10000))
+        save_wav(str(tmp_path / "bonafide" / u), (0.2 * rng.normal(size=n)).astype(np.float32))
+        save_wav(str(tmp_path / "vocoded" / f"hifigan_{u}"),
+                 (0.2 * rng.normal(size=n)).astype(np.float32))
+    save_wav(str(tmp_path / "musan" / "n.wav"), (0.1 * rng.normal(size=16000)).astype(np.float32))
+    save_wav(str(tmp_path / "rirs" / "r.wav"), np.exp(-np.arange(800) / 120.0).astype(np.float32))
+    os.makedirs(tmp_path / "scp")
+    (tmp_path / "scp" / "train_bonafide.lst").write_text("\n".join(utts[:4]) + "\n")
+    (tmp_path / "scp" / "dev_bonafide.lst").write_text("\n".join(utts[4:]) + "\n")
+    cfg = tmp_path / "conf3_tiny.yaml"
+    cfg.write_text(
+        "model: {name: wav2vec2_linear_nll, loss_type: 1}\n"
+        "data:\n  name: asvspoof_2019_augall_3\n  kwargs:\n"
+        "    vocoders: ['hifigan']\n"
+        "    augmentation_methods: [RawBoost12, background_noise_wrapper, reverb_wrapper]\n"
+        "    num_additional_real: 1\n    trim_length: 8000\n"
+        f"    noise_path: {tmp_path / 'musan'}\n    rir_path: {tmp_path / 'rirs'}\n")
+    _kernels.reset_launches()
+    rc = main(["--config", str(cfg), "--database_path", str(tmp_path), "--ssl_preset", "tiny",
+               "--compute_dtype", "bfloat16", "--batch_size", "2", "--num_epochs", "1",
+               "--num_workers", "2", "--out_dir", str(tmp_path / "out"), "--device", "cuda"])
+    torch.cuda.synchronize()
+    assert rc == 0
+    layers, steps, dev = 2, 2, 1
+    assert _kernels.LAUNCHES == {"flash_attn_fwd": 2 * layers * steps + layers * dev,
+                                 "flash_attn_bwd_dq": layers * steps,
+                                 "flash_attn_bwd_dkv": layers * steps}
+    run_dir = tmp_path / "out" / os.listdir(tmp_path / "out")[0]
+    rec = json.loads((run_dir / "metrics.jsonl").read_text().splitlines()[0])
+    assert all(np.isfinite(v) for v in rec.values() if isinstance(v, float)), rec
+    assert (run_dir / "last.ckpt").exists()

@@ -242,7 +242,7 @@ def test_port_cli_eval_writes_the_jax_cli_rows(tmp_path):
     assert _rows(pout2) == got
 
 
-@pytest.mark.parametrize("argv", [["--train"], [], ["--eval", "--predict"],
+@pytest.mark.parametrize("argv", [["--train"], ["--device_aug"], ["--eval", "--predict"],
                                   ["--analyze", "x.txt"]])
 def test_port_cli_refuses_unported_modes(argv, capsys):
     from scl_deepfake_audio_detection_torch.cli import main as port_main
@@ -339,7 +339,17 @@ def test_file_lists_match_jax(tmp_path, layout):
 
     _db(tmp_path, n=4, layout=layout)
     if layout == "scl":
-        assert P.gen_list_scl(str(tmp_path), "eval") == JP.gen_list_scl(str(tmp_path), "eval")
+        scp = tmp_path / "scp"
+        (scp / "train_bonafide.lst").write_text("t1.wav\nt2.wav extra\n\nt3.wav\n")
+        (scp / "dev_bonafide.lst").write_text("d1.wav\n")
+        (scp / "dev_spoof.lst").write_text("s1.wav\ns2.wav\n")
+        for split in ("train", "dev", "eval"):
+            assert P.gen_list_scl(str(tmp_path), split) == JP.gen_list_scl(str(tmp_path), split)
+            assert (P.gen_list_spoof_dirs(str(tmp_path), split)
+                    == JP.gen_list_spoof_dirs(str(tmp_path), split))
+        assert P.gen_list_spoof_dirs(str(tmp_path), "dev")[0] == {"s1.wav": 0, "s2.wav": 0}
+        with pytest.raises(ValueError):
+            P.gen_list_scl(str(tmp_path), "test")
     else:
         assert P.gen_list_eval_only(str(tmp_path)) == JP.gen_list_eval_only(str(tmp_path))
 
@@ -348,15 +358,15 @@ def test_file_lists_match_jax(tmp_path, layout):
                          ids=os.path.basename)
 def test_load_config_reads_what_eval_needs_like_jax(path):
     from scl_deepfake_audio_detection_tpu.utils.config import load_config as jload
-    from scl_deepfake_audio_detection_torch.data.datasets import layout
     from scl_deepfake_audio_detection_torch.utils.config import load_config
+    from scl_deepfake_audio_detection_torch.utils.registry import DATASETS
 
     mine, ref = load_config(path), jload(path)
     assert (mine.model.name, mine.model.flag_fix_ssl, mine.model.contra_mode,
             mine.model.loss_type) == (ref.model.name, ref.model.flag_fix_ssl,
                                        ref.model.contra_mode, ref.model.loss_type)
     assert (mine.data.name, mine.data.kwargs) == (ref.data.name, ref.data.kwargs)
-    assert layout(mine.data.name)["eval_subdir"] == (mine.data.name != "eval_only")
+    assert DATASETS.get(mine.data.name)["eval_subdir"] == (mine.data.name != "eval_only")
 
 
 def test_checkpoint_reader_matches_jax():

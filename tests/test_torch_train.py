@@ -330,7 +330,7 @@ def test_flag_fix_ssl_trains_only_the_head(golden_tree):
         assert torch.equal(p, before[n]) == n.startswith("ssl."), n
 
 
-def test_engine_refuses_unported_settings():
+def test_engine_refuses_unported_settings(tmp_path):
     model = LinearNLL(ssl=PX.XLSRConfig.tiny(), emb_dim=4, device="cpu")
     for kw, err in (({"mesh_shape": [2, 1]}, NotImplementedError),
                     ({"zero1": True}, NotImplementedError),
@@ -338,10 +338,11 @@ def test_engine_refuses_unported_settings():
         with pytest.raises(err):
             PE.Engine(model, TrainConfig(**kw))
     PE.Engine(model, TrainConfig(mesh_shape=[1, 1]))
-    eng = PE.Engine(model, TrainConfig())
-    for kw in ({"tensorboard_dir": "tb"}, {"profile_dir": "prof"}):
-        with pytest.raises(NotImplementedError):
-            eng.fit(list, list, **kw)
+    # tensorboard scalars and the first epoch's profiler trace are ported
+    eng = PE.Engine(model, TrainConfig(num_epochs=1))
+    eng.fit(list, list, tensorboard_dir=str(tmp_path / "tb"),
+            profile_dir=str(tmp_path / "prof"))
+    assert [n for n in os.listdir(tmp_path / "prof") if n.startswith("trace_")]
 
 
 def test_step_generators_are_reproducible():
