@@ -38,11 +38,23 @@ Phases, each of which fails the script with a non-zero exit:
    / 96, finite ``metrics.jsonl``, and ``last.ckpt`` loaded into a fresh
    model scoring exactly as the trained one; it prints the CLI's wall time
    and ms per step, the host's ms per 11-view group, peak memory and each
-   checkpoint's size and write time;
+   checkpoint's size and write time.  Between ``--eval`` and ``fit``, the
+   eval modes at XLS-R 300M bf16 on a 32-utterance database with four
+   clips of 150000-260000 samples (``phase_eval_modes``): ``--eval``, then
+   ``--predict`` and ``--emb`` (held to its rows within 1e-5),
+   ``--long_audio`` (held to ``score_long_audio`` in-process within 1e-5
+   and to impl='reference' within 5e-2) and ``--resume_eval`` on the file
+   cut after 11 rows and half a row, each with the exact forward launches
+   its file list implies; bucketed scoring in-process, whose batches reach
+   T > 256, each batch held against impl='reference'; and ``--analyze``,
+   ``--compare``, ``--fuse`` and ``--fit_calibration``, which must exit 0,
+   print the EER that ``compute_eer`` gives, and show no CUDA activity in
+   ``torch.profiler`` and no launch;
 6. times: CUDA-event times of each kernel at the training shape [22, 16,
-   199, 64] bf16 (the forward also at the eval shape [16, 16, 201, 64]),
-   replayed from a CUDA graph, best of two, with its eager time beside it;
-   of its plain version; and of the PyTorch yardstick
+   199, 64] bf16 (the forward also at the eval shape [16, 16, 201, 64]
+   and at bucketed scoring's longest batch [16, 16, 349, 64]), replayed
+   from a CUDA graph, best of two, with its eager time beside it; of its
+   plain version; and of the PyTorch yardstick
    (``F.scaled_dot_product_attention`` pinned to its flash backend, timed
    the same way; its backward for the backward kernels; the port never
    calls it), each kernel's bound, eval utt/s, ms per train step and peak
@@ -59,7 +71,9 @@ callable, so that both times cover the same work.
 
 The JSON object with one entry per kernel comes two lines before the last
 (launches counted on the training CLI's path, with each path's counts under
-``launches_by_path``; times at the training shape, ``ms`` = ``graph_ms``,
+``launches_by_path``: ``eval``, ``eval_modes``, ``train``, ``train_cli``;
+the forward's times at bucketed scoring's longest batch [16, 16, 349, 64]
+under ``eval_modes``; times at the training shape, ``ms`` = ``graph_ms``,
 with ``eager_ms`` and ``ms_before``; the forward's eval-shape times under
 ``eval``), then the card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
@@ -130,6 +144,7 @@ TRAIN_ATOL = 1e-5
 MAIN_PATH_ATOL = 5e-2
 MAIN_SHAPE = (16, 16, 201, 64)  # XLS-R 300M at [16, 64600]: B, H, T, D
 TRAIN_SHAPE = (22, 16, 199, 64)  # XLS-R 300M at [2 x 11, 64000]
+BUCKET_SHAPE = (16, 16, 349, 64)  # bucketed scoring's longest batch, [16, 112000]
 CONF3 = dict(groups=2, views=11, samples=64000, steps=3, seed=1234)
 REPLACES = {
     "flash_attn_fwd": "scl_deepfake_audio_detection_tpu/ops/attention.py:144",
@@ -380,6 +395,299 @@ def phase_main_path(K, tmp):
     if vs_file > 1e-5 or vs_ref > MAIN_PATH_ATOL:
         raise AssertionError("main-path scores disagree")
     return launches
+
+
+EVAL_MODES = dict(n=32, long={5: 150000, 13: 190000, 21: 225000, 29: 260000},
+                  short=(20000, 64600), batch=16, long_batch=8, resume_rows=11,
+                  bucketed=48, bucketed_len=(40000, 112000), bucket_multiple=16000,
+                  boot=200, seed=4321)
+
+
+def n_crops(n: int, window: int = 64600) -> int:
+    """Crops ``--long_audio`` scores for n samples: windows at hops of
+    window / 2 from 0, plus one that ends at n when the hops fall short."""
+    if n <= window:
+        return 1
+    hop = window // 2
+    k = (n - window) // hop + 1
+    return k + int((k - 1) * hop + window < n)
+
+
+def _eval_modes_database(root):
+    """32 utterances in the eval-only layout, half of them bonafide: 28 of
+    20000-64600 samples and four long ones of 150000-260000."""
+    from scl_deepfake_audio_detection_torch.utils.audio_io import save_wav
+
+    c = EVAL_MODES
+    rng = np.random.default_rng(c["seed"])
+    utts = [f"m{i:03d}.wav" for i in range(c["n"])]
+    lengths = [c["long"].get(i, int(rng.integers(*c["short"], endpoint=True)))
+               for i in range(c["n"])]
+    for u, n in zip(utts, lengths):
+        save_wav(os.path.join(root, u), (0.1 * rng.normal(size=n)).astype(np.float32))
+    with open(os.path.join(root, "protocol.txt"), "w") as f:
+        f.writelines(f"{u} eval {'bonafide' if i % 2 else 'spoof'}\n"
+                     for i, u in enumerate(utts))
+    return utts, lengths
+
+
+def _read_rows(path):
+    with open(path) as f:
+        return [ln.split() for ln in f]
+
+
+def phase_eval_modes(K, card, tmp):
+    """The eval modes and the score analysis through the port's CLI at
+    XLS-R 300M bf16 (int16 wire, the seed of ``phase_main_path``, so every
+    call builds the same random weights) on a 32-utterance database with
+    four long clips: ``--eval`` and then ``--predict``, ``--emb``,
+    ``--long_audio`` and ``--resume_eval`` beside it, each held to the
+    exact forward-kernel launches its file list implies; bucketed scoring
+    in-process, whose batches reach T > 256, held against
+    impl='reference'; then ``--analyze``, ``--compare``, ``--fuse`` and
+    ``--fit_calibration``, which must launch nothing on the card."""
+    import contextlib
+    import io
+    import re
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from scl_deepfake_audio_detection_torch import cli
+    from scl_deepfake_audio_detection_torch.data.datasets import EvalDataset
+    from scl_deepfake_audio_detection_torch.dsp.pad import pad_eval
+    from scl_deepfake_audio_detection_torch.models.base import cast_matmul_params
+    from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.train import scoring
+    from scl_deepfake_audio_detection_torch.train.engine import score_step
+    from scl_deepfake_audio_detection_torch.train.metrics import compute_eer
+    from scl_deepfake_audio_detection_torch.utils.config import load_config
+
+    c = EVAL_MODES
+    seed = 1234  # phase_main_path's
+    t_phase = time.perf_counter()
+    db = os.path.join(tmp, "db")
+    utts, lengths = _eval_modes_database(db)
+    n_utts, batch = len(utts), c["batch"]
+    layers = XLSRConfig.xlsr_300m().encoder_layers
+    common = ["--config", EVAL_CONFIG, "--database_path", db, "--ssl_preset", "xlsr_300m",
+              "--compute_dtype", "bfloat16", "--batch_size", str(batch), "--num_workers", "4",
+              "--wire_dtype", "int16", "--seed", str(seed), "--device", "cuda"]
+    path_launches = {name: 0 for name in K.KERNELS}
+
+    def drive(label, argv, forwards, n_scored):
+        K.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(common + argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        want = {name: 0 for name in K.KERNELS}
+        want["flash_attn_fwd"] = layers * forwards
+        print(f"[eval-modes] {card}: {label}: {n_scored} utts in {wall:.2f}s wall (model "
+              f"build included), {n_scored / wall:.2f} utt/s; launches {launches}, "
+              f"expected {want}")
+        if rc != 0:
+            raise AssertionError(f"{label} exited {rc}")
+        if launches != want:
+            raise AssertionError(f"{label} launched {launches}, expected {want}")
+        for name in K.KERNELS:
+            path_launches[name] += launches[name]
+
+    # 1. --eval, the file every other mode is held to
+    ev_path = os.path.join(tmp, "eval.txt")
+    drive("--eval", ["--eval", "--eval_output", ev_path], math.ceil(n_utts / batch), n_utts)
+    ev = _read_rows(ev_path)
+    lp = np.array([r[1:] for r in ev], np.float64)
+    if [r[0] for r in ev] != utts or not np.isfinite(lp).all():
+        raise AssertionError("--eval wrote bad rows")
+    ev_rows = {r[0]: (float(r[1]), float(r[2])) for r in ev}
+
+    # 2. --eval --predict: score = cm1 of --eval, pred its argmax
+    pred_path = os.path.join(tmp, "pred.txt")
+    drive("--eval --predict", ["--eval", "--predict", "--eval_output", pred_path],
+          math.ceil(n_utts / batch), n_utts)
+    pred = _read_rows(pred_path)
+    err = max(abs(float(s) - ev_rows[u][1]) for u, s, _ in pred)
+    argmax_ok = all(int(p) == int(ev_rows[u][1] > ev_rows[u][0]) for u, _, p in pred)
+    print(f"[eval-modes] --predict vs --eval: max |score - cm1| {err:.3e} (tol 1e-05), "
+          f"pred = argmax {argmax_ok}")
+    if [r[0] for r in pred] != utts or err > 1e-5 or not argmax_ok:
+        raise AssertionError("--predict disagrees with --eval")
+
+    # 3. --eval --emb: scores.txt as --eval, one finite [128] embedding per utt
+    emb_dir = os.path.join(tmp, "emb")
+    drive("--eval --emb", ["--eval", "--emb", "--eval_output", emb_dir],
+          math.ceil(n_utts / batch), n_utts)
+    emb_rows = _read_rows(os.path.join(emb_dir, "scores.txt"))
+    err = max(max(abs(float(a) - ev_rows[u][0]), abs(float(b) - ev_rows[u][1]))
+              for u, a, b in emb_rows)
+    embs = [np.load(os.path.join(emb_dir, u[:-4] + ".npy")) for u in utts]
+    emb_ok = all(e.shape == (128,) and np.isfinite(e).all() for e in embs)
+    print(f"[eval-modes] --emb scores.txt vs --eval: max |d| {err:.3e} (tol 1e-05); "
+          f"{len(embs)} embeddings of shape [128], all finite: {emb_ok}")
+    if [r[0] for r in emb_rows] != utts or err > 1e-5 or not emb_ok:
+        raise AssertionError("--emb disagrees with --eval")
+
+    # 4. --eval --long_audio: overlapping crops, 8 a forward
+    long_path = os.path.join(tmp, "long.txt")
+    crops = [n_crops(n) for n in lengths]
+    drive("--eval --long_audio", ["--eval", "--long_audio", "--padding_type", "repeat",
+                                  "--batch_size", str(c["long_batch"]),
+                                  "--eval_output", long_path],
+          sum(math.ceil(k / c["long_batch"]) for k in crops), n_utts)
+    print(f"[eval-modes] --long_audio crops per utt {crops}")
+
+    # 5. --eval --resume_eval on the --eval file cut after 11 rows and half a row
+    resume_path = os.path.join(tmp, "resume.txt")
+    with open(ev_path) as f:
+        lines = f.readlines()
+    keep = c["resume_rows"]
+    torn = lines[keep][: len(lines[keep]) // 2]
+    with open(resume_path, "w") as f:
+        f.write("".join(lines[:keep]) + torn)
+    remaining = n_utts - keep
+    drive("--eval --resume_eval", ["--eval", "--resume_eval", "--eval_output", resume_path],
+          math.ceil(remaining / batch), remaining)
+    with open(resume_path) as f:
+        resumed = f.readlines()
+    rows = [ln.split() for ln in resumed]
+    # the torn row is gone: every line whole, every utt once
+    whole = all(ln.endswith("\n") and len(r) == 3 for ln, r in zip(resumed, rows))
+    once = sorted(r[0] for r in rows) == sorted(utts)
+    if not (whole and once):
+        raise AssertionError(f"--resume_eval left a torn or repeated row: {resumed}")
+    err = max(max(abs(float(a) - ev_rows[u][0]), abs(float(b) - ev_rows[u][1]))
+              for u, a, b in rows[keep:])
+    print(f"[eval-modes] --resume_eval: {keep} rows kept byte-identical "
+          f"{resumed[:keep] == lines[:keep]}, torn row dropped, {len(rows) - keep} rows "
+          f"appended, each utt once; new rows vs --eval max |d| {err:.3e} "
+          f"(tol {MAIN_PATH_ATOL:.0e}: other batches)")
+    if resumed[:keep] != lines[:keep] or err > MAIN_PATH_ATOL:
+        raise AssertionError("--resume_eval did not resume the file")
+
+    # the same weights in-process: the kernel path and impl='reference'
+    cfg = load_config(EVAL_CONFIG)
+    models = {}
+    for impl in ("auto", "reference"):
+        ssl = XLSRConfig.xlsr_300m(compute_dtype="bfloat16", attention_impl=impl)
+        models[impl] = cast_matmul_params(
+            LinearNLL.from_config(cfg.model, ssl=ssl, device="cuda", seed=seed).eval(),
+            torch.bfloat16)
+
+    # --long_audio rows against score_long_audio through score_step
+    ds = EvalDataset(utts, db, padding_type="repeat", use_eval_subdir=False)
+    long_rows = {r[0]: np.array(r[1:], np.float64) for r in _read_rows(long_path)}
+    err_file = err_ref = 0.0
+    for i, u in enumerate(utts):
+        wav, _ = ds.get_raw(i)
+        got = {impl: scoring.score_long_audio(wav, lambda b, m=m: score_step(m, b),
+                                              batch=c["long_batch"])
+               for impl, m in models.items()}
+        err_file = max(err_file, np.abs(long_rows[u] - got["auto"]).max())
+        err_ref = max(err_ref, np.abs(got["auto"] - got["reference"]).max())
+    print(f"[eval-modes] --long_audio rows vs score_long_audio in-process: max |d| "
+          f"{err_file:.3e} (tol 1e-05); kernel vs impl='reference' {err_ref:.3e} "
+          f"(tol {MAIN_PATH_ATOL:.0e})")
+    if sorted(long_rows) != sorted(utts) or err_file > 1e-5 or err_ref > MAIN_PATH_ATOL:
+        raise AssertionError("--long_audio rows disagree")
+
+    # 6. bucketed scoring in-process: pads to multiples of 16000 samples
+    rng = np.random.default_rng(c["seed"] + 1)
+    b_wavs = [(0.1 * rng.normal(size=int(n))).astype(np.float32)
+              for n in rng.integers(*c["bucketed_len"], size=c["bucketed"], endpoint=True)]
+    b_utts = [f"b{i:03d}" for i in range(len(b_wavs))]
+    batches = list(scoring.bucketed_batches(b_wavs, b_utts, batch,
+                                            bucket_multiple=c["bucket_multiple"]))
+    frames = [XLSRConfig.xlsr_300m().num_frames(w.shape[1]) for w, _ in batches]
+    K.reset_launches()
+    torch.cuda.synchronize()
+    outs = [score_step(models["auto"], w) for w, _ in batches]
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    want = {name: 0 for name in K.KERNELS}
+    want["flash_attn_fwd"] = layers * len(batches)
+    for name in K.KERNELS:
+        path_launches[name] += launches[name]
+    errs = [(o.float() - score_step(models["reference"], w).float()).abs().max().item()
+            for o, (w, _) in zip(outs, batches)]
+    print(f"[eval-modes] bucketed scoring of {len(b_wavs)} utts of "
+          f"{c['bucketed_len'][0]}-{c['bucketed_len'][1]} samples, batch {batch}, "
+          f"multiple {c['bucket_multiple']}: batches {[list(w.shape) for w, _ in batches]}, "
+          f"T {frames}; kernel vs impl='reference' max |d log-prob| per batch "
+          f"{[f'{e:.3e}' for e in errs]} (tol {MAIN_PATH_ATOL:.0e}); launches {launches}, "
+          f"expected {want}")
+    if launches != want or max(frames) <= 256 or max(errs) > MAIN_PATH_ATOL:
+        raise AssertionError("bucketed scoring: launches, T or scores wrong")
+
+    # bucketed against fixed 64600-sample crops of the same utterances
+    fixed = [np.stack([pad_eval(w, "zero", 64600) for w in b_wavs[i : i + batch]])
+             for i in range(0, len(b_wavs), batch)]
+    runs = {"bucketed": [w for w, _ in batches], "fixed": fixed}
+    for w in fixed:  # the bucketed shapes ran above
+        score_step(models["auto"], w)
+    rates = {"bucketed": [], "fixed": []}
+    for name in ("bucketed", "fixed", "fixed", "bucketed"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for w in runs[name]:
+            score_step(models["auto"], w).cpu()
+        rates[name].append(len(b_wavs) / (time.perf_counter() - t0))
+    print(f"[eval-modes] {card}: bucketed scoring {max(rates['bucketed']):.2f} utt/s "
+          f"against fixed [{batch}, 64600] crops {max(rates['fixed']):.2f} utt/s on the same "
+          f"{len(b_wavs)} utts (score_step, read back each batch, best of 2)")
+    del models, outs
+    torch.cuda.empty_cache()
+
+    # 7. score analysis: nothing on the card
+    proto = os.path.join(db, "protocol.txt")
+    analyses = [
+        ("--analyze", ["--analyze", ev_path]),
+        ("--compare", ["--compare", f"{ev_path},{long_path}"]),
+        ("--fuse", ["--fuse", f"{ev_path},{long_path}"]),
+        ("--fit_calibration", ["--fit_calibration", ev_path]),
+    ]
+    torch.cuda.synchronize()
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=activities) as control:
+        torch.ones(8, device="cuda").add_(1)
+        torch.cuda.synchronize()
+    seen_control = sum(e.device_type == torch.autograd.DeviceType.CUDA
+                       for e in control.events())
+    allocs = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    reports = {}
+    K.reset_launches()
+    with profile(activities=activities) as prof:
+        for label, argv in analyses:
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(argv + ["--protocol", proto, "--bootstrap_ci", str(c["boot"])])
+            wall = time.perf_counter() - t0
+            reports[label] = out.getvalue()
+            print(f"[eval-modes] {card}: {label}: exit {rc} in {wall:.3f}s wall; "
+                  + " | ".join(reports[label].strip().splitlines()))
+            if rc != 0:
+                raise AssertionError(f"{label} exited {rc}")
+        torch.cuda.synchronize()
+    seen = sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+    allocs_after = torch.cuda.memory_stats().get("allocation.all.allocated", 0)
+    launches = dict(K.LAUNCHES)
+    labels = {u: i % 2 for i, u in enumerate(utts)}
+    cm1 = {u: s[1] for u, s in ev_rows.items()}
+    eer, _ = compute_eer([cm1[u] for u in utts if labels[u]],
+                         [cm1[u] for u in utts if not labels[u]])
+    printed = re.search(r"EER: ([0-9.]+)%", reports["--analyze"]).group(1)
+    print(f"[eval-modes] analysis: CUDA activity {seen} events (a one-op control "
+          f"window saw {seen_control}), card allocations {allocs_after - allocs}, kernel "
+          f"launches {launches}; --analyze EER {printed}% against compute_eer "
+          f"{100 * eer:.4f}%")
+    if (seen or not seen_control or allocs_after != allocs or any(launches.values())
+            or printed != f"{100 * eer:.4f}"):
+        raise AssertionError("score analysis touched the card or misreports the EER")
+    print(f"[eval-modes] phase in {time.perf_counter() - t_phase:.2f}s; launches {path_launches}")
+    return path_launches
 
 
 def _fwd_entry(K, A, shape, card, g, KB=None):
@@ -980,6 +1288,11 @@ def main() -> int:
     phase_golden_train(K)
     with tempfile.TemporaryDirectory() as tmp:
         eval_launches = phase_main_path(K, tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        modes_launches = phase_eval_modes(K, card, tmp)
+    # the forward at bucketed scoring's longest batch, past T = 256
+    modes_fwd = _fwd_entry(K, A, BUCKET_SHAPE, card, torch.Generator(device="cuda").manual_seed(6))
     eval_fwd = phase_times(K, A, card, KB)
     torch.cuda.empty_cache()
     launches = phase_train_main_path(K, card)
@@ -989,8 +1302,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     times = phase_backward_times(K, A, card, KB)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f}s; launches on the "
-          f"eval main path {eval_launches}, on the training main path {launches}, "
-          f"through the training CLI {cli_launches}")
+          f"eval main path {eval_launches}, in the eval modes {modes_launches}, on the "
+          f"training main path {launches}, through the training CLI {cli_launches}")
     # Each entry's launches belong to this slice's main path, the training
     # CLI; its times to that path's shape (the fit run's, [22, 16, 199, 64]).
     # The other paths' launches sit beside them, and the forward's
@@ -1004,12 +1317,14 @@ def main() -> int:
             "replaces": REPLACES[name],
             "path": "train_cli",
             "launches": cli_launches[name],
-            "launches_by_path": {"eval": eval_launches[name], "train": launches[name],
-                                 "train_cli": cli_launches[name]},
+            "launches_by_path": {"eval": eval_launches[name],
+                                 "eval_modes": modes_launches[name],
+                                 "train": launches[name], "train_cli": cli_launches[name]},
             **times[name],
         }
         if name == "flash_attn_fwd":
             entry["eval"] = {"launches": eval_launches[name], **eval_fwd}
+            entry["eval_modes"] = {"launches": modes_launches[name], **modes_fwd}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,15 +1,19 @@
 """Command-line interface of the port.
 
 ``python -m scl_deepfake_audio_detection_torch.cli`` takes the JAX CLI's
-flags (``cli/flags.py``) plus ``--device`` (default ``cuda``).  It trains
-(no mode flag), scores an eval list (``--eval``) or prints the parameter
+flags (``cli/flags.py``) plus ``--device`` (default ``cuda``).  It analyses
+score files (``--analyze``, ``--compare``, ``--fuse``, ``--fit_calibration``),
+trains (no mode flag), scores an eval list (``--eval``, with ``--predict``,
+``--emb``, ``--long_audio``, ``--resume_eval``) or prints the parameter
 table (``--show_params``), in the fixed order of the JAX CLI's dispatch.
-Every mode and option of a later slice exits 2 with "not ported yet",
-before a model is built or the card is touched.
+The analysis modes come first: they build no model and never touch the
+card.  Every mode and option of a later slice exits 2 with "not ported
+yet", before a model is built or the card is touched.
 
+  ``cli.analyze``   score analysis (no model, no device)
   ``cli.context``   the shared runtime: config, device, model, engine
   ``cli.train``     training and --show_params
-  ``cli.evaluate``  eval-list scoring (--eval)
+  ``cli.evaluate``  eval-list scoring
 """
 
 from __future__ import annotations
@@ -40,6 +44,17 @@ def _dispatch(args, unknown) -> int:
     if later:
         raise CliError(2, "not ported yet: " + ", ".join(
             f"{flag} ({where})" for flag, where in later))
+
+    from scl_deepfake_audio_detection_torch.cli import analyze
+
+    rc = analyze.dispatch(args)
+    if rc is not None:
+        return rc
+    if (args.predict or args.emb) and not args.eval:
+        # the reference takes --predict/--emb inside --eval; without this
+        # guard they would fall through to a training run
+        raise CliError(2, "--predict/--emb select an output format for "
+                          "--eval scoring: pass --eval as well")
 
     from scl_deepfake_audio_detection_torch.cli import context
     from scl_deepfake_audio_detection_torch.cli import train as train_mode

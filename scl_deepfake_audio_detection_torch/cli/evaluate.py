@@ -1,8 +1,11 @@
-"""``--eval``: score an eval list into ``utt cm0 cm1`` lines.
+"""Eval-list scoring: ``--eval`` (``utt cm0 cm1``), ``--eval --predict``
+(``utt score pred``), ``--eval --emb`` (per-utt ``.npy`` embeddings and
+``scores.txt``), ``--eval --long_audio`` (overlapping crops, scores
+averaged) and ``--resume_eval`` (score only what an earlier run left).
 
-EvalDataset -> EvalLoader -> score_step -> produce_evaluation_file, the
-flow of ``scl_deepfake_audio_detection_tpu/cli/evaluate.py`` without its
-decode cache, resume, long-audio and multi-host options.
+EvalDataset -> EvalLoader -> score_step -> the writers of
+``train/scoring``, the flow of ``scl_deepfake_audio_detection_tpu/cli/evaluate.py``
+without its decode cache, ``--from_export`` and multi-host sharding.
 """
 
 from __future__ import annotations
@@ -10,11 +13,14 @@ from __future__ import annotations
 import sys
 import time
 
+import torch
+
 from scl_deepfake_audio_detection_torch.cli.context import RunContext
 from scl_deepfake_audio_detection_torch.data import protocols
 from scl_deepfake_audio_detection_torch.data.datasets import EvalDataset
 from scl_deepfake_audio_detection_torch.data.loader import EvalLoader
 from scl_deepfake_audio_detection_torch.models.base import cast_matmul_params
+from scl_deepfake_audio_detection_torch.ops.layers import dewire_pcm16
 from scl_deepfake_audio_detection_torch.train import scoring
 from scl_deepfake_audio_detection_torch.train.engine import score_step
 from scl_deepfake_audio_detection_torch.utils.device import torch_dtype
@@ -30,6 +36,25 @@ def run(args, ctx: RunContext) -> int:
         _, file_eval = protocols.gen_list_scl(args.database_path, "eval")
     print(f"no. of eval trials {len(file_eval)}")
     out = args.eval_output or "scores.txt"
+    resume_append = False
+    if args.resume_eval:
+        if args.emb:
+            print("--resume_eval supports --eval/--predict score files "
+                  "(per-utt .npy embedding dirs don't resume); rerun "
+                  "--emb without it", file=sys.stderr)
+            return 2
+        valid_rows, scored = scoring.read_valid_rows(out, n_tokens=3)
+        if scored:
+            file_eval = [u for u in file_eval if u not in scored]
+            # rewrite exactly the rows kept: a torn final line and repeats go
+            with open(out, "w") as f:
+                f.writelines(valid_rows)
+            resume_append = True
+            print(f"resume: {len(scored)} utts already scored in {out}, "
+                  f"{len(file_eval)} remaining")
+            if not file_eval:
+                print(f"nothing left to score -> {out}")
+                return 0
     ds = EvalDataset(file_eval, args.database_path, padding_type=args.padding_type,
                      use_eval_subdir=ctx.desc["eval_subdir"])
     loader = EvalLoader(ds, batch_size=max(args.batch_size, 1),
@@ -45,8 +70,37 @@ def run(args, ctx: RunContext) -> int:
             print(f"  scored {n}/{total} ({rate:.1f} utt/s)", file=sys.stderr)
             last["n"], last["t"] = n, now
 
-    scoring.produce_evaluation_file(loader, lambda wav: score_step(model, wav), out,
-                                    progress=progress)
+    def score_fn(wav):
+        return score_step(model, wav)
+
+    if args.long_audio and not (args.emb or args.predict):
+        # one utterance at a time: each has its own number of crops, which
+        # go through score_step in fixed [batch, 64600] blocks
+        scoring.produce_long_audio_evaluation_file(
+            ds, score_fn, out, batch=max(args.batch_size, 1), append=resume_append,
+            progress=progress)
+        print(f"scored {total} utts (long-audio chunked) in {time.time() - t0:.1f}s -> {out}")
+        return 0
+    if args.long_audio:
+        print("--long_audio applies to --eval scoring only; "
+              "--predict/--emb use the fixed-window path", file=sys.stderr)
+
+    if args.emb:
+        device = ctx.device
+
+        def emb_fn(wav):
+            with torch.inference_mode():
+                o = model.apply(dewire_pcm16(torch.as_tensor(wav).to(device, non_blocking=True)),
+                                train=False)
+            return o.log_probs, o.emb
+
+        scoring.produce_emb_file(loader, emb_fn, out, progress=progress)
+    elif args.predict:
+        scoring.produce_prediction_file(loader, score_fn, out, append=resume_append,
+                                        progress=progress)
+    else:
+        scoring.produce_evaluation_file(loader, score_fn, out, append=resume_append,
+                                        progress=progress)
     dt = time.time() - t0
     print(f"scored {total} utts in {dt:.1f}s ({total / dt:.1f} utt/s) -> {out}")
     return 0

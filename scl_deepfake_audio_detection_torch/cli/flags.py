@@ -17,15 +17,7 @@ from scl_deepfake_audio_detection_torch.utils.config import RawBoostConfig
 
 # dest -> (the value that leaves the flag off, the slice that ports it)
 LATER_SLICES = {
-    "analyze": (None, "Slice D"),
-    "fit_calibration": (None, "Slice D"),
-    "compare": (None, "Slice D"),
-    "fuse": (None, "Slice D"),
-    "predict": (False, "Slice D"),
-    "emb": (False, "Slice D"),
-    "long_audio": (False, "Slice D"),
-    "resume_eval": (False, "Slice D"),
-    "calibrate": (None, "Slice D"),
+    "calibrate": (None, "Slice E"),
     "average_ckpts": (None, "what Slice B left"),
     "bf16_grads": (False, "what Slice B left"),
     "device_aug": (False, "Slice B3"),

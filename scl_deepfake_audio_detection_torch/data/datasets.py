@@ -239,9 +239,13 @@ class EvalDataset:
         return len(self.files)
 
     def get(self, idx: int) -> Tuple[np.ndarray, str]:
-        utt = self.files[idx]
-        wav = load_audio(os.path.join(self.base_dir, utt), self.sample_rate)
+        wav, utt = self.get_raw(idx)
         return pad_eval(wav, self.padding_type, self.cut).astype(np.float32), utt
+
+    def get_raw(self, idx: int) -> Tuple[np.ndarray, str]:
+        """Full-length audio, neither padded nor cut (``--long_audio``)."""
+        utt = self.files[idx]
+        return load_audio(os.path.join(self.base_dir, utt), self.sample_rate), utt
 
 
 # reference dataset-module names -> descriptors

@@ -1,4 +1,6 @@
-"""File lists for the two database layouts.
+"""Protocols and file lists of the database layouts.
+
+Counterpart of ``scl_deepfake_audio_detection_tpu/data/protocols.py``:
 
 1. SCL layout (reference ``asvspoof_2019_augall_3.genList``): the train,
    dev and eval lists are ``scp/train_bonafide.lst``, ``scp/dev_bonafide.lst``
@@ -6,14 +8,28 @@
    ``eval/``.
 2. Generic eval layout (reference ``eval_only.genList``): ``protocol.txt``
    lines are ``<relative audio path> <subset> <label>``.
+3. ASVspoof'19-style five-column metadata for score analysis
+   (reference ``Result.ipynb``): ``speaker utt - attack label``.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Tuple
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
 
 BONAFIDE, SPOOF = 1, 0
+
+_LABEL_MAP = {"bonafide": BONAFIDE, "bona-fide": BONAFIDE, "spoof": SPOOF, "fake": SPOOF}
+
+
+@dataclass(frozen=True)
+class Trial:
+    utt: str  # utterance id / relative audio path
+    label: Optional[int]  # 1 bonafide, 0 spoof, None unknown
+    speaker: Optional[str] = None
+    attack: Optional[str] = None
+    subset: Optional[str] = None
 
 
 def _read_lines(path: str) -> List[str]:
@@ -24,6 +40,54 @@ def _read_lines(path: str) -> List[str]:
 def read_scp(path: str) -> List[str]:
     """One utterance filename per line (``scp/*.lst``)."""
     return [ln.split()[0] for ln in _read_lines(path)]
+
+
+def parse_asvspoof_protocol(path: str) -> List[Trial]:
+    """``speaker utt phy attack label`` lines (layout 1 and 3)."""
+    trials = []
+    for ln in _read_lines(path):
+        parts = ln.split()
+        if len(parts) < 5:
+            raise ValueError(f"bad asvspoof protocol line in {path}: {ln!r}")
+        spk, utt, _phy, attack, label = parts[:5]
+        trials.append(
+            Trial(utt=utt, label=_LABEL_MAP.get(label.lower()), speaker=spk, attack=attack))
+    return trials
+
+
+def parse_subset_protocol(path: str) -> List[Trial]:
+    """``<path> <subset> <label>`` lines (layout 2)."""
+    trials = []
+    for ln in _read_lines(path):
+        parts = ln.split()
+        if len(parts) < 3:
+            raise ValueError(f"bad subset protocol line in {path}: {ln!r}")
+        utt, subset, label = parts[:3]
+        trials.append(Trial(utt=utt, label=_LABEL_MAP.get(label.lower()), subset=subset))
+    return trials
+
+
+def sniff_protocol(path: str) -> str:
+    """The protocol flavour from the first line: 'asvspoof' or 'subset'."""
+    first = _read_lines(path)[0].split()
+    return "asvspoof" if len(first) >= 5 else "subset"
+
+
+def parse_protocol(path: str) -> List[Trial]:
+    return (parse_asvspoof_protocol(path) if sniff_protocol(path) == "asvspoof"
+            else parse_subset_protocol(path))
+
+
+def label_map(trials: List[Trial], strip_ext: bool = False) -> Dict[str, int]:
+    """utt -> {0, 1}; with ``strip_ext`` keyed on the extension-less
+    basename, as ``Result.ipynb`` joins score files with protocols."""
+    out = {}
+    for t in trials:
+        if t.label is None:
+            continue
+        key = os.path.basename(t.utt).split(".")[0] if strip_ext else t.utt
+        out[key] = t.label
+    return out
 
 
 _SCL_LISTS = {"train": "scp/train_bonafide.lst", "dev": "scp/dev_bonafide.lst",
@@ -53,11 +117,5 @@ def gen_list_spoof_dirs(database_path: str, split: str) -> Tuple[Dict[str, int],
 
 def gen_list_eval_only(database_path: str) -> Tuple[Dict[str, int], List[str]]:
     """Eval file list of the generic layout: first column of protocol.txt."""
-    utts = []
-    path = os.path.join(database_path, "protocol.txt")
-    for ln in _read_lines(path):
-        parts = ln.split()
-        if len(parts) < 3:
-            raise ValueError(f"bad subset protocol line in {path}: {ln!r}")
-        utts.append(parts[0])
-    return {}, utts
+    trials = parse_subset_protocol(os.path.join(database_path, "protocol.txt"))
+    return {}, [t.utt for t in trials]

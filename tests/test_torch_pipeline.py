@@ -242,8 +242,8 @@ def test_port_cli_eval_writes_the_jax_cli_rows(tmp_path):
     assert _rows(pout2) == got
 
 
-@pytest.mark.parametrize("argv", [["--train"], ["--device_aug"], ["--eval", "--predict"],
-                                  ["--analyze", "x.txt"]])
+@pytest.mark.parametrize("argv", [["--train"], ["--device_aug"],
+                                  ["--eval", "--decode_cache", "c"], ["--serve"]])
 def test_port_cli_refuses_unported_modes(argv, capsys):
     from scl_deepfake_audio_detection_torch.cli import main as port_main
 
