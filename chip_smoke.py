@@ -38,7 +38,21 @@ Phases, each of which fails the script with a non-zero exit:
    / 96, finite ``metrics.jsonl``, and ``last.ckpt`` loaded into a fresh
    model scoring exactly as the trained one; it prints the CLI's wall time
    and ms per step, the host's ms per 11-view group, peak memory and each
-   checkpoint's size and write time.  Between ``--eval`` and ``fit``, the
+   checkpoint's size and write time.  Then ``--device_aug``
+   (``phase_device_aug``): the view composer on the card against the
+   composer on the CPU on the same inputs and draws at [2, 11, 64000],
+   nb 1024 (FFT length 65024), augall_3 in both SNR modes, int16-amplitude
+   rows within 4 LSB and signal rows within 1e-5, launching no
+   hand-written kernel; the training CLI with ``--device_aug`` on the same
+   database and config, 4 train steps and 1 dev step, launches 216 / 96 /
+   96 and a finite ``metrics.jsonl``, its dev views composed again by a
+   fresh composer and found identical; it prints the CLI's ms per step
+   beside the host path's, the host's ms per group through
+   ``DeviceAugTrainLoader`` and the composer's ms per step.  Then remat
+   (``phase_remat``): two train steps at [2, 11, 64000] bf16 under
+   'attn', 'attn_ffn', 'dots' and 'full', and one step with bf16
+   weight-grad stacks under fp32 compute (``--bf16_grads``), each with
+   48 / 24 / 24 launches per step, ms per step and peak memory.  Between ``--eval`` and ``fit``, the
    eval modes at XLS-R 300M bf16 on a 32-utterance database with four
    clips of 150000-260000 samples (``phase_eval_modes``): ``--eval``, then
    ``--predict`` and ``--emb`` (held to its rows within 1e-5),
@@ -70,8 +84,10 @@ input, its ``ms_before`` is that kernel and torch's D as one graphed
 callable, so that both times cover the same work.
 
 The JSON object with one entry per kernel comes two lines before the last
-(launches counted on the training CLI's path, with each path's counts under
-``launches_by_path``: ``eval``, ``eval_modes``, ``train``, ``train_cli``;
+(launches counted on the path of the training CLI with ``--device_aug``,
+with each path's counts under
+``launches_by_path``: ``eval``, ``eval_modes``, ``train``, ``train_cli``,
+``train_cli_device_aug`` and ``remat_<policy>_per_step``;
 the forward's times at bucketed scoring's longest batch [16, 16, 349, 64]
 under ``eval_modes``; times at the training shape, ``ms`` = ``graph_ms``,
 with ``eager_ms`` and ``ms_before``; the forward's eval-shape times under
@@ -1042,33 +1058,14 @@ def _cli_database(root):
     return cfg, utts
 
 
-def phase_train_cli(K, card, tmp):
-    """The port's CLI training mode in-process at XLS-R 300M with conf-3
-    verbatim (V = 11, trim 64000) on a database written here: 4 train steps
-    of 2 anchor groups and 1 dev step, host augmentation in TrainLoader.
-    Then last.ckpt is loaded into a fresh model, which must score a batch
-    exactly as the trained one; and the host's time to build one group."""
+def _observed_cli(K, argv):
+    """The port's CLI in-process, observed without being changed: its
+    engine (to score with its model afterwards), each train step's end,
+    each checkpoint write, the launches, the wall time and peak memory."""
     from scl_deepfake_audio_detection_torch import cli
-    from scl_deepfake_audio_detection_torch.data import protocols
-    from scl_deepfake_audio_detection_torch.data.datasets import (
-        SCLViewBatchBuilder, resources_from_config, spec_from_config)
-    from scl_deepfake_audio_detection_torch.data.loader import TrainLoader
-    from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
-    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
     from scl_deepfake_audio_detection_torch.train import checkpoint as ckpt
     from scl_deepfake_audio_detection_torch.train import engine as E
-    from scl_deepfake_audio_detection_torch.utils.config import load_config
-    from scl_deepfake_audio_detection_torch.utils.registry import MODELS
 
-    db, out = os.path.join(tmp, "db"), os.path.join(tmp, "out")
-    cfg_path, utts = _cli_database(db)
-    argv = ["--config", cfg_path, "--database_path", db, "--ssl_preset", "xlsr_300m",
-            "--compute_dtype", "bfloat16", "--batch_size", "2", "--num_epochs", "1",
-            "--device", "cuda", "--out_dir", out]
-    workers = cli.build_parser().parse_args(argv).num_workers
-
-    # observe the run without changing it: the engine (to score with its
-    # model afterwards), each train step's end, each checkpoint write
     seen = {"engine": None, "step_end": [], "writes": []}
     fit, step, write = E.Engine.fit, E.Engine.train_step, ckpt._write_flat
 
@@ -1097,17 +1094,269 @@ def phase_train_cli(K, card, tmp):
         torch.cuda.synchronize()
     finally:
         E.Engine.fit, E.Engine.train_step, ckpt._write_flat = fit, step, write
-    wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
+    seen.update(wall=time.perf_counter() - t0, launches=dict(K.LAUNCHES),
+                peak=torch.cuda.max_memory_allocated())
     if rc != 0:
         raise AssertionError(f"the training CLI exited {rc}")
+    ends = seen["step_end"]
+    seen["per_step_ms"] = ((ends[-1] - ends[0]) / (len(ends) - 1) * 1e3 if len(ends) > 1
+                           else float("nan"))
+    return seen
+
+
+DEVICE_AUG = dict(groups=2, samples=64000, nb=1024, n_real=1, n_voc=3, seed=77,
+                  noise=(4, 128000), rir=(3, 8000))
+INT16_ATOL = 4.0  # LSB at int16 amplitude: trunc(x * 32768) of two FFT libraries
+SIGNAL_ATOL = 1e-5
+
+
+def _draws_to(draws, device):
+    """A role -> draws dict (``device_pipeline.draw_views``) on ``device``."""
+    import dataclasses
+
+    def move(d):
+        return type(d)(**{f.name: (move(v) if dataclasses.is_dataclass(v) else
+                                   None if v is None else v.to(device))
+                          for f in dataclasses.fields(d) for v in (getattr(d, f.name),)})
+
+    return {role: move(d) for role, d in draws.items()}
+
+
+def _views_close(got, want):
+    """Max |difference| of the int16-amplitude rows (peak > 2) and of the
+    signal-scale rows; fails past INT16_ATOL or SIGNAL_ATOL."""
+    got, want = (x.double().cpu().reshape(-1, x.shape[-1]) for x in (got, want))
+    big = want.abs().amax(dim=-1) > 2.0
+    diff = (got - want).abs().amax(dim=-1)
+    e16 = float(diff[big].max()) if big.any() else 0.0
+    esig = float(diff[~big].max()) if (~big).any() else 0.0
+    if e16 > INT16_ATOL or esig > SIGNAL_ATOL:
+        raise AssertionError(f"views differ: int16 rows {e16:.3g} (atol {INT16_ATOL}), "
+                             f"signal rows {esig:.3g} (atol {SIGNAL_ATOL})")
+    return e16, esig, int(big.sum())
+
+
+def phase_device_aug(K, card, host):
+    """``--device_aug``: the composer on the card against the composer on
+    the CPU on the same inputs and draws, at the training shape, for
+    augall_3 in both SNR modes; then the training CLI with --device_aug at
+    XLS-R 300M on phase_train_cli's database (``host``: its paths and
+    figures), 4 train steps and 1 dev step, launching what the host path
+    launches, with the dev pass's views composed again by a fresh composer
+    and found identical."""
+    from scl_deepfake_audio_detection_torch import cli
+    from scl_deepfake_audio_detection_torch.cli.train import _device_composer, composer_seed
+    from scl_deepfake_audio_detection_torch.data import device_pipeline as DP
+    from scl_deepfake_audio_detection_torch.data import protocols
+    from scl_deepfake_audio_detection_torch.data.datasets import (
+        SCLViewBatchBuilder, resources_from_config, spec_from_config)
+    from scl_deepfake_audio_detection_torch.data.loader import DeviceAugTrainLoader
+    from scl_deepfake_audio_detection_torch.dsp import rawboost_batched as RBB
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.utils.config import RawBoostConfig, load_config
+
+    c = DEVICE_AUG
+    g, t = c["groups"], c["samples"]
+    rng = np.random.default_rng(c["seed"])
+    rb = RawBoostConfig()
+    anchors = (0.2 * rng.normal(size=(g, t))).astype(np.float32)
+    reals = (0.2 * rng.normal(size=(g, c["n_real"], t))).astype(np.float32)
+    voc = (0.2 * rng.normal(size=(g, c["n_voc"], t))).astype(np.float32)
+    spoofs = np.zeros((g, 0, t), np.float32)
+    noise = (0.05 * rng.normal(size=c["noise"])).astype(np.float32)
+    rir = (0.2 * np.exp(-np.arange(c["rir"][1]) / 800.0) * rng.normal(size=c["rir"])
+           ).astype(np.float32)
+    rir[:, 0] = 1.0  # a dominant direct path: one peak index on both sides
+    rows = g * (1 + c["n_voc"] + c["n_real"])
+    chains = np.stack([RBB.pack_chains(RBB.design_lnl_chains(rb, 16000, rng), c["nb"])
+                       for _ in range(rows)]).astype(np.float32)
+    inputs = [torch.from_numpy(a) for a in (anchors, reals, voc, spoofs, noise, rir, chains)]
+    for mode in ("reference", "rms"):
+        draws = DP.draw_views(g, c["n_real"], c["n_voc"], 0, t, inputs[4], inputs[5], rb,
+                              "augall_3", mode, torch.Generator().manual_seed(c["seed"]))
+        want, labels = DP.compose_views_given(*inputs, draws, rb, "augall_3", mode)
+        on_card = [a.cuda() for a in inputs]
+        K.reset_launches()
+        got, got_labels = DP.compose_views_given(*on_card, _draws_to(draws, "cuda"), rb,
+                                                 "augall_3", mode)
+        torch.cuda.synchronize()
+        if any(K.LAUNCHES.values()) or not torch.equal(got_labels.cpu(), labels):
+            raise AssertionError(f"composer launches {dict(K.LAUNCHES)} or labels differ")
+        e16, esig, n16 = _views_close(got, want)
+        print(f"[device-aug] composer augall_3 '{mode}' [{g}, {got.shape[1]}, {t}] nb "
+              f"{c['nb']} (FFT length {t + c['nb']}), card vs CPU on the same draws: int16 "
+              f"rows ({n16}) max |diff| {e16:.4g} LSB (atol {INT16_ATOL}), signal rows "
+              f"{esig:.3g} (atol {SIGNAL_ATOL})")
+    composer = DP.DeviceViewComposer(rb, noise, rir, seed=c["seed"], device="cuda")
+    comp_ms = {mode: None for mode in ("reference", "rms")}
+    for mode in comp_ms:
+        composer.snr_mode = mode
+        comp_ms[mode] = cuda_ms(lambda: composer(anchors, reals, voc, 5), iters=10, warmup=2)
+    del composer, on_card, got
+    torch.cuda.empty_cache()
+
+    # the training CLI with --device_aug on phase_train_cli's database
+    out = os.path.join(os.path.dirname(host["db"]), "out_device_aug")
+    argv = ["--config", host["config"], "--database_path", host["db"], "--ssl_preset",
+            "xlsr_300m", "--compute_dtype", "bfloat16", "--batch_size", "2",
+            "--num_epochs", "1", "--device", "cuda", "--out_dir", out, "--device_aug"]
+    args = cli.build_parser().parse_args(argv)
+    dev_seed = composer_seed(args.seed, -1, 0)
+    dev_views = []
+    call = DP.DeviceViewComposer.__call__
+
+    def spy(self, anchors, reals, vocoded, step_seed, spoofs=None, variant="augall_3"):
+        views, labels = call(self, anchors, reals, vocoded, step_seed, spoofs, variant)
+        if step_seed == dev_seed:
+            dev_views.append(views.clone())
+        return views, labels
+
+    DP.DeviceViewComposer.__call__ = spy
+    try:
+        seen = _observed_cli(K, argv)
+    finally:
+        DP.DeviceViewComposer.__call__ = call
     layers = XLSRConfig.xlsr_300m().encoder_layers
     steps, dev_steps = CLI_DB["train"] // 2, -(-CLI_DB["dev"] // 2)
     want = {"flash_attn_fwd": 2 * layers * steps + layers * dev_steps,
             "flash_attn_bwd_dq": layers * steps, "flash_attn_bwd_dkv": layers * steps}
-    ends = seen["step_end"]
-    per_step = (ends[-1] - ends[0]) / (len(ends) - 1) * 1e3 if len(ends) > 1 else float("nan")
+    launches = seen["launches"]
+    print(f"[device-aug] {card}: CLI --device_aug, XLS-R 300M bf16 remat 'attn', conf-3, "
+          f"{steps} steps + {dev_steps} dev step: {seen['wall']:.2f}s wall, "
+          f"{seen['per_step_ms']:.2f} ms/step after the first (host path "
+          f"{host['per_step_ms']:.2f}), peak memory {seen['peak'] / 2**30:.3f} GiB "
+          f"(host path {host['peak'] / 2**30:.3f})")
+    print(f"[device-aug] launches {launches}, expected {want}")
+    if len(seen["step_end"]) != steps or launches != want:
+        raise AssertionError(f"--device_aug: {len(seen['step_end'])} steps, launches "
+                             f"{launches}; expected {steps} and {want}")
+    run_dir = os.path.join(out, os.listdir(out)[0])
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(ln) for ln in f]
+    nums = {k: v for k, v in recs[0].items() if isinstance(v, (int, float))} if recs else {}
+    print("[device-aug] metrics.jsonl: " + ", ".join(f"{k} {v:.6g}" for k, v in nums.items()))
+    if len(recs) != 1 or not all(np.isfinite(v) for v in nums.values()):
+        raise AssertionError(f"metrics.jsonl: {recs}")
+    del seen
+    torch.cuda.empty_cache()
+
+    # the dev pass again, as a resumed run composes it: a fresh composer
+    cfg = load_config(host["config"])
+    cfg.rawboost = cli.flags._rawboost_from_args(args)  # as the CLI's runtime sets it
+    spec = spec_from_config(cfg.data.name, cfg.data.kwargs)
+    spec.repeat_pad = False  # the CLI's --padding_type zero
+    res = resources_from_config(cfg.data.kwargs, cfg.rawboost)
+    fresh = _device_composer(args, cfg, spec, "cuda")
+    _, dev_files = protocols.gen_list_scl(host["db"], "dev")
+    dev_loader = DeviceAugTrainLoader(SCLViewBatchBuilder(spec, host["db"], dev_files, res,
+                                                          seed=args.seed + 1),
+                                      2, shuffle=False, drop_last=False,
+                                      num_workers=args.num_workers, seed=args.seed)
+    raw = next(iter(dev_loader.epoch(0)))
+    again, _ = fresh(raw["anchors"], raw["reals"], raw["vocoded"], dev_seed,
+                     spoofs=raw["spoofs"], variant=spec.variant)
+    same = len(dev_views) == 1 and torch.equal(dev_views[0], again)
+    print(f"[device-aug] dev views {tuple(again.shape)} composed again by a fresh composer: "
+          f"identical {same}")
+    if not same:
+        raise AssertionError("the dev pass's views change between composers")
+
+    _, files = protocols.gen_list_scl(host["db"], "train")
+    builder = SCLViewBatchBuilder(spec, host["db"], files, res, seed=args.seed)
+    t1 = time.perf_counter()
+    n = sum(b["anchors"].shape[0] for b in DeviceAugTrainLoader(
+        builder, 2, num_workers=args.num_workers).epoch(0))
+    decode = (time.perf_counter() - t1) / n * 1e3
+    print(f"[device-aug] {card}: host, {os.cpu_count()} cores: {decode:.1f} ms per group "
+          f"through DeviceAugTrainLoader (decode and crop only) against {host['group_ms']:.1f} "
+          f"ms through TrainLoader (host augmentation); composer on the card "
+          f"{comp_ms['reference']:.2f} ms per step of {g} groups ('reference'), "
+          f"{comp_ms['rms']:.2f} ms ('rms'), CUDA events, host arrays in")
+    return launches
+
+
+REMAT_POLICIES = ("attn", "attn_ffn", "dots", "full")
+
+
+def phase_remat(K, card):
+    """Two train steps of the conf-3 model at [2, 11, 64000] bf16 under each
+    remat policy: ms for the second, peak memory, the launches of one step
+    (the forward recomputed under every policy: 48 / 24 / 24); then one
+    step with bf16 weight-grad stacks under fp32 compute (--bf16_grads)."""
+    from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.train.engine import Engine
+    from scl_deepfake_audio_detection_torch.utils.config import TrainConfig
+
+    c = CONF3
+    layers = XLSRConfig.xlsr_300m().encoder_layers
+    want = {"flash_attn_fwd": 2 * layers, "flash_attn_bwd_dq": layers,
+            "flash_attn_bwd_dkv": layers}
+    batch = conf3_batches(1, c["seed"])[0]
+    out = {}
+    runs = [(p, dict(compute_dtype="bfloat16", remat_policy=p)) for p in REMAT_POLICIES]
+    # --bf16_grads: the encoder's matmul weights rounded to bf16, fp32 compute
+    runs.append(("attn_bf16_grads_fp32", dict(compute_dtype="float32", remat_policy="attn",
+                                              grad_stack_dtype="bfloat16")))
+    for label, kw in runs:
+        cfg = TrainConfig(compute_dtype=kw["compute_dtype"], seed=c["seed"])
+        eng = Engine(LinearNLL(ssl=XLSRConfig.xlsr_300m(remat=True, **kw), device="cuda",
+                               seed=c["seed"]), cfg)
+        eng.init_state()
+        placed = eng.place_batch(batch)
+        n_steps = 1 if kw["compute_dtype"] == "float32" else 2
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for i in range(n_steps):
+            K.reset_launches()
+            t0 = time.perf_counter()
+            m = eng.train_step(placed, eng.step_generator(0, i))
+            loss = float(m["loss"])
+            ms = (time.perf_counter() - t0) * 1e3
+        launches, peak = dict(K.LAUNCHES), torch.cuda.max_memory_allocated()
+        print(f"[remat] {card}: '{label}' [{c['groups']}, {c['views']}, {c['samples']}]: "
+              f"step {n_steps} {ms:.2f} ms (loss read back), peak memory "
+              f"{peak / 2**30:.3f} GiB, loss {loss:.6g}, launches per step {launches} "
+              f"(expected {want})")
+        if launches != want or not np.isfinite(loss):
+            raise AssertionError(f"remat '{label}': launches {launches}, loss {loss}")
+        out[label] = {"ms": ms, "peak_gib": peak / 2**30, "launches": launches}
+        del eng, placed, m
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_cli(K, card, tmp):
+    """The port's CLI training mode in-process at XLS-R 300M with conf-3
+    verbatim (V = 11, trim 64000) on a database written here: 4 train steps
+    of 2 anchor groups and 1 dev step, host augmentation in TrainLoader.
+    Then last.ckpt is loaded into a fresh model, which must score a batch
+    exactly as the trained one; and the host's time to build one group."""
+    from scl_deepfake_audio_detection_torch import cli
+    from scl_deepfake_audio_detection_torch.data import protocols
+    from scl_deepfake_audio_detection_torch.data.datasets import (
+        SCLViewBatchBuilder, resources_from_config, spec_from_config)
+    from scl_deepfake_audio_detection_torch.data.loader import TrainLoader
+    from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.train import checkpoint as ckpt
+    from scl_deepfake_audio_detection_torch.train import engine as E
+    from scl_deepfake_audio_detection_torch.utils.config import load_config
+    from scl_deepfake_audio_detection_torch.utils.registry import MODELS
+
+    db, out = os.path.join(tmp, "db"), os.path.join(tmp, "out_host")
+    cfg_path, utts = _cli_database(db)
+    argv = ["--config", cfg_path, "--database_path", db, "--ssl_preset", "xlsr_300m",
+            "--compute_dtype", "bfloat16", "--batch_size", "2", "--num_epochs", "1",
+            "--device", "cuda", "--out_dir", out]
+    workers = cli.build_parser().parse_args(argv).num_workers
+    seen = _observed_cli(K, argv)
+    wall, launches, peak = seen["wall"], seen["launches"], seen["peak"]
+    layers = XLSRConfig.xlsr_300m().encoder_layers
+    steps, dev_steps = CLI_DB["train"] // 2, -(-CLI_DB["dev"] // 2)
+    want = {"flash_attn_fwd": 2 * layers * steps + layers * dev_steps,
+            "flash_attn_bwd_dq": layers * steps, "flash_attn_bwd_dkv": layers * steps}
+    ends, per_step = seen["step_end"], seen["per_step_ms"]
     print(f"[train-cli] {card}: CLI training, XLS-R 300M + LinearNLL bf16 remat 'attn', "
           f"conf-3 (V = 11, trim 64000), {steps} steps of 2 groups + {dev_steps} dev step: "
           f"{wall:.2f}s wall (model build, checkpoint writes included), "
@@ -1167,7 +1416,8 @@ def phase_train_cli(K, card, tmp):
           f"SCLViewBatchBuilder.build alone, {loader:.1f} ms per group through TrainLoader "
           f"(2 groups a step, --num_workers {workers}): {2 * loader:.1f} ms of host work "
           f"per step against the CLI's {per_step:.1f} ms per step")
-    return launches
+    return launches, {"db": db, "config": cfg_path, "per_step_ms": per_step,
+                      "group_ms": loader, "peak": peak}
 
 
 def _bound(nbytes, flops):
@@ -1298,14 +1548,20 @@ def main() -> int:
     launches = phase_train_main_path(K, card)
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
-        cli_launches = phase_train_cli(K, card, tmp)
+        cli_launches, host = phase_train_cli(K, card, tmp)
+        torch.cuda.empty_cache()
+        aug_launches = phase_device_aug(K, card, host)
     torch.cuda.empty_cache()
+    remat = phase_remat(K, card)
     times = phase_backward_times(K, A, card, KB)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f}s; launches on the "
           f"eval main path {eval_launches}, in the eval modes {modes_launches}, on the "
-          f"training main path {launches}, through the training CLI {cli_launches}")
+          f"training main path {launches}, through the training CLI {cli_launches}, with "
+          f"--device_aug {aug_launches}; remat per step "
+          f"{ {k: v['launches'] for k, v in remat.items()} }")
     # Each entry's launches belong to this slice's main path, the training
-    # CLI; its times to that path's shape (the fit run's, [22, 16, 199, 64]).
+    # CLI with --device_aug; its times to that path's shape (the fit run's,
+    # [22, 16, 199, 64]).
     # The other paths' launches sit beside them, and the forward's
     # eval-shape times under "eval".
     kernels = []
@@ -1315,11 +1571,14 @@ def main() -> int:
             "route": "cuda",
             "source": f"scl_deepfake_audio_detection_torch/csrc/{K.SOURCES[name]}",
             "replaces": REPLACES[name],
-            "path": "train_cli",
-            "launches": cli_launches[name],
+            "path": "train_cli_device_aug",
+            "launches": aug_launches[name],
             "launches_by_path": {"eval": eval_launches[name],
                                  "eval_modes": modes_launches[name],
-                                 "train": launches[name], "train_cli": cli_launches[name]},
+                                 "train": launches[name], "train_cli": cli_launches[name],
+                                 "train_cli_device_aug": aug_launches[name],
+                                 **{f"remat_{k}_per_step": v["launches"][name]
+                                    for k, v in remat.items()}},
             **times[name],
         }
         if name == "flash_attn_fwd":

@@ -1,16 +1,17 @@
 """Command-line interface of the port.
 
 ``python -m scl_deepfake_audio_detection_torch.cli`` takes the JAX CLI's
-flags (``cli/flags.py``) plus ``--device`` (default ``cuda``).  It analyses
-score files (``--analyze``, ``--compare``, ``--fuse``, ``--fit_calibration``),
-trains (no mode flag), scores an eval list (``--eval``, with ``--predict``,
-``--emb``, ``--long_audio``, ``--resume_eval``) or prints the parameter
-table (``--show_params``), in the fixed order of the JAX CLI's dispatch.
-The analysis modes come first: they build no model and never touch the
-card.  Every mode and option of a later slice exits 2 with "not ported
+flags (``cli/flags.py``) plus ``--device`` (default ``cuda``).  It averages
+checkpoints (``--average_ckpts``), analyses score files (``--analyze``,
+``--compare``, ``--fuse``, ``--fit_calibration``), trains (no mode flag;
+``--device_aug`` composes the views on the device), scores an eval list
+(``--eval``, with ``--predict``, ``--emb``, ``--long_audio``,
+``--resume_eval``) or prints the parameter table (``--show_params``), in
+the fixed order of the JAX CLI's dispatch.  The modes that build no model
+come first: they never touch the card.  Every mode and option of a later slice exits 2 with "not ported
 yet", before a model is built or the card is touched.
 
-  ``cli.analyze``   score analysis (no model, no device)
+  ``cli.analyze``   checkpoint averaging and score analysis (no model, no device)
   ``cli.context``   the shared runtime: config, device, model, engine
   ``cli.train``     training and --show_params
   ``cli.evaluate``  eval-list scoring

@@ -1,11 +1,10 @@
-"""Score-analysis CLI modes: ``--compare``, ``--fuse``, ``--fit_calibration``
-and ``--analyze``.
+"""The CLI modes that build no model: ``--average_ckpts``, ``--compare``,
+``--fuse``, ``--fit_calibration`` and ``--analyze``.
 
 Counterpart of ``scl_deepfake_audio_detection_tpu/cli/analyze.py``.  Each
-mode reads score and protocol text files and prints a report; none builds a
-model or touches a device, so they run with the default ``--device cuda`` on
-a machine without a card.  ``--average_ckpts`` is not ported yet
-(``cli/flags.LATER_SLICES``).
+mode reads checkpoints, or score and protocol text files, and prints a
+report; none touches a device, so they run with the default ``--device
+cuda`` on a machine without a card.
 """
 
 from __future__ import annotations
@@ -33,6 +32,8 @@ from scl_deepfake_audio_detection_torch.train.metrics import (
 def dispatch(args):
     """Run the analysis mode that ``args`` selects, in the JAX CLI's order;
     None when it selects none (the caller then builds the runtime)."""
+    if args.average_ckpts:
+        return run_average_ckpts(args)
     if args.compare:
         return run_compare(args)
     if args.fuse:
@@ -42,6 +43,23 @@ def dispatch(args):
     if args.analyze:
         return run_analyze(args)
     return None
+
+
+def run_average_ckpts(args) -> int:
+    from scl_deepfake_audio_detection_torch.train.checkpoint import average_checkpoints
+
+    paths = [p.strip() for p in args.average_ckpts.split(",") if p.strip()]
+    out = args.avg_out or "averaged.ckpt"
+    try:
+        avg, _ = average_checkpoints(paths, out_path=out)
+    except ValueError as e:
+        print(str(e), file=sys.stderr)
+        return 2
+    nbytes = sum(a.nbytes for a in avg.values())
+    print(f"averaged {len(paths)} checkpoints ({len(avg)} leaves, "
+          f"{nbytes/1e6:.1f} MB) -> {out}; eval/serve/export it with "
+          f"--model_path {out}")
+    return 0
 
 
 def run_compare(args) -> int:

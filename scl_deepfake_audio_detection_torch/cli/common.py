@@ -18,11 +18,13 @@ class CliError(Exception):
 
 def _build_model(args, cfg, device):
     """The configured model at ``--ssl_preset`` on ``device``, with remat
-    (the 'attn' policy) as the JAX CLI builds it, parameters from
-    ``--seed``."""
+    (the 'attn' policy) and ``--bf16_grads`` as the JAX CLI builds it,
+    parameters from ``--seed``."""
     try:
         cls = MODELS.get(cfg.model.name)
     except (KeyError, NotImplementedError) as e:
         raise CliError(2, str(e).strip("'\""))
-    ssl = getattr(XLSRConfig, args.ssl_preset)(compute_dtype=args.compute_dtype, remat=True)
+    gsd = "bfloat16" if args.bf16_grads else None
+    ssl = getattr(XLSRConfig, args.ssl_preset)(compute_dtype=args.compute_dtype, remat=True,
+                                               grad_stack_dtype=gsd)
     return cls.from_config(cfg.model, ssl=ssl, device=device, seed=args.seed)

@@ -10,7 +10,8 @@ mode makes optimizer state:
    init, or the parameters of a JAX-format ``--model_path`` checkpoint) and
    its ``Engine``.
 3. ``init_state``: the optimizer (training only) and the resume of a full
-   train state that ``--model_path`` names (the port's ``last.ckpt``).
+   train state that ``--model_path`` names (a ``last.ckpt`` of either
+   package).
 """
 
 from __future__ import annotations
@@ -93,14 +94,10 @@ def load_model_state(ctx: RunContext) -> None:
     if args.model_path:
         tree, extra = ckpt.load(args.model_path)
         load_jax_params(ctx.model, tree["params"] if "params" in tree else tree)
-        if isinstance(tree, dict) and "opt" in tree:
-            ctx.resume_path = args.model_path  # the port's full train state
+        if isinstance(tree, dict) and "opt_state_leaves" in tree:
+            ctx.resume_path = args.model_path  # a full train state of either package
             ctx.resume_epoch = int(extra.get("epoch", -1)) + 1
             ctx.resume_extra = extra
-        elif isinstance(tree, dict) and "opt_state_leaves" in tree and not args.eval:
-            raise CliError(2, "not ported yet: resuming the optax optimizer state "
-                              f"of a JAX train state ({args.model_path}); what "
-                              "Slice B left")
         print(f"loaded checkpoint {args.model_path} (extra={extra})")
 
 

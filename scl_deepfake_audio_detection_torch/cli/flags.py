@@ -18,10 +18,6 @@ from scl_deepfake_audio_detection_torch.utils.config import RawBoostConfig
 # dest -> (the value that leaves the flag off, the slice that ports it)
 LATER_SLICES = {
     "calibrate": (None, "Slice E"),
-    "average_ckpts": (None, "what Slice B left"),
-    "bf16_grads": (False, "what Slice B left"),
-    "device_aug": (False, "Slice B3"),
-    "snr_mode": ("reference", "Slice B3"),
     "warm_cache": (False, "Slice C"),
     "decode_cache": (None, "Slice C"),
     "ssl_checkpoint": (None, "Slice E"),
@@ -41,6 +37,8 @@ LATER_SLICES = {
 _PORT_HELP = {
     "jax_cache": "accepted for the JAX CLI's flag surface; no effect in the port",
     "profile_dir": "write a torch.profiler trace of the first epoch here",
+    "device_aug": "compose the view batches on the device (RawBoost, noise and "
+                  "reverb over the whole batch); the host only decodes",
 }
 
 

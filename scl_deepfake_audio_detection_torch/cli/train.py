@@ -2,11 +2,13 @@
 full-state checkpoints (the reference ``02_train.sh`` flow), and
 ``--show_params``.
 
-Counterpart of ``scl_deepfake_audio_detection_tpu/cli/train.py`` with host
-augmentation: ``SCLViewBatchBuilder`` composes each anchor group in numpy
-on ``TrainLoader``'s worker threads, and ``Engine.fit`` trains on the
-device.  It prints the JAX CLI's lines: trial counts, the model tag, one
-line per epoch and the total time.
+Counterpart of ``scl_deepfake_audio_detection_tpu/cli/train.py``.  With host
+augmentation ``SCLViewBatchBuilder`` composes each anchor group in numpy on
+``TrainLoader``'s worker threads; with ``--device_aug`` the workers only
+decode and co-crop (``DeviceAugTrainLoader``) and
+``data/device_pipeline.DeviceViewComposer`` composes the views on the
+model's device.  ``Engine.fit`` trains there.  It prints the JAX CLI's
+lines: trial counts, the model tag, one line per epoch and the total time.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import os
 import sys
 import time
 
-from scl_deepfake_audio_detection_torch.cli.common import _build_model
+from scl_deepfake_audio_detection_torch.cli.common import CliError, _build_model
 from scl_deepfake_audio_detection_torch.cli.context import RunContext
 
 
@@ -38,7 +40,10 @@ def run(args, ctx: RunContext) -> int:
         resources_from_config,
         spec_from_config,
     )
-    from scl_deepfake_audio_detection_torch.data.loader import TrainLoader
+    from scl_deepfake_audio_detection_torch.data.loader import (
+        DeviceAugTrainLoader,
+        TrainLoader,
+    )
     from scl_deepfake_audio_detection_torch.train.tblog import tensorboard_available
 
     cfg, train_cfg, engine = ctx.cfg, ctx.train_cfg, ctx.engine
@@ -57,13 +62,19 @@ def run(args, ctx: RunContext) -> int:
     print(f"no. of validation trials {len(file_dev)}")
 
     groups = args.groups_per_step or max(args.batch_size, 1)
-    train_loader = TrainLoader(
-        SCLViewBatchBuilder(spec, args.database_path, file_train, res, seed=args.seed),
-        groups, shuffle=True, num_workers=args.num_workers, seed=args.seed)
-    dev_loader = TrainLoader(
-        SCLViewBatchBuilder(spec, args.database_path, file_dev, res, seed=args.seed + 1),
-        groups, shuffle=False, drop_last=False, num_workers=args.num_workers,
-        seed=args.seed)
+    train_builder = SCLViewBatchBuilder(spec, args.database_path, file_train, res,
+                                        seed=args.seed)
+    dev_builder = SCLViewBatchBuilder(spec, args.database_path, file_dev, res,
+                                      seed=args.seed + 1)
+    composer = _device_composer(args, cfg, spec, ctx.device) if args.device_aug else None
+    if composer is None:
+        loader_cls, kw = TrainLoader, {}
+    else:
+        loader_cls, kw = DeviceAugTrainLoader, {"wire_dtype": args.wire_dtype}
+    train_loader = loader_cls(train_builder, groups, shuffle=True,
+                              num_workers=args.num_workers, seed=args.seed, **kw)
+    dev_loader = loader_cls(dev_builder, groups, shuffle=False, drop_last=False,
+                            num_workers=args.num_workers, seed=args.seed, **kw)
 
     save_dir = os.path.join(args.out_dir, train_cfg.model_tag())
     os.makedirs(save_dir, exist_ok=True)
@@ -74,10 +85,20 @@ def run(args, ctx: RunContext) -> int:
 
     epoch_counter = {"n": train_cfg.start_epoch}
 
+    def composed(raw_batches, epoch):
+        for i, raw in enumerate(raw_batches):
+            views, labels = composer(raw["anchors"], raw["reals"], raw["vocoded"],
+                                     composer_seed(args.seed, epoch, i),
+                                     spoofs=raw["spoofs"], variant=spec.variant)
+            yield {"wav": views, "labels": labels, "utts": raw["utts"]}
+
     def train_batches():
         e = epoch_counter["n"]
         epoch_counter["n"] += 1
-        return train_loader.epoch(e)
+        return composed(train_loader.epoch(e), e) if composer else train_loader.epoch(e)
+
+    def dev_batches():  # epoch -1: the same dev views every epoch and across resumes
+        return composed(dev_loader.epoch(0), -1) if composer else dev_loader.epoch(0)
 
     def log_fn(epoch, record):
         eer = record.get("val_eer")  # under --early_metric eer; None for one class
@@ -89,8 +110,41 @@ def run(args, ctx: RunContext) -> int:
               f"{eer_s}({record['seconds']:.1f}s)")
 
     t0 = time.time()
-    engine.fit(train_batches, lambda: dev_loader.epoch(0), save_dir=save_dir,
+    engine.fit(train_batches, dev_batches, save_dir=save_dir,
                log_fn=log_fn, tensorboard_dir=tb_dir, profile_dir=args.profile_dir,
                resume_best=ctx.resume_best, resume_counter=ctx.resume_counter)
     print(f"Total training time: {time.time() - t0}s")
     return 0
+
+
+def composer_seed(seed: int, epoch: int, step: int) -> int:
+    """The composer's seed for step ``step`` of ``epoch`` (-1 for the dev
+    pass), from the words of the JAX CLI's per-batch key: ``seed + 77``
+    and ``(epoch + 1) * 1_000_003 + step``."""
+    from scl_deepfake_audio_detection_torch.data.device_pipeline import mix_seed
+
+    return mix_seed(seed + 77, (epoch + 1) * 1_000_003 + step)
+
+
+def _device_composer(args, cfg, spec, device):
+    """The banks and the composer of ``--device_aug``, after checking that
+    the config asks for exactly the recipe it implements."""
+    from scl_deepfake_audio_detection_torch.data.device_pipeline import (
+        DeviceViewComposer,
+        build_banks,
+    )
+
+    want = {"RawBoost12", "background_noise", "reverb"}  # the conf-3 recipe
+    got = {m.replace("_wrapper", "") for m in spec.augmentation_methods}
+    if got != want:
+        # any other list would train another augmentation distribution
+        # than the config asks for, silently
+        raise CliError(2, f"--device_aug supports the conf-3 recipe {sorted(want)} "
+                          f"only; this config requests {sorted(got)} — run without "
+                          "--device_aug (host augmentation covers every method)")
+    noise_bank, rir_bank = build_banks(cfg.data.kwargs.get("noise_path"),
+                                       cfg.data.kwargs.get("rir_path"),
+                                       sr=spec.wav_samp_rate)
+    print(f"device augmentation: noise bank {noise_bank.shape}, rir bank {rir_bank.shape}")
+    return DeviceViewComposer(cfg.rawboost, noise_bank, rir_bank, fs=spec.wav_samp_rate,
+                              seed=args.seed, snr_mode=args.snr_mode, device=device)

@@ -220,6 +220,37 @@ class SCLViewBatchBuilder:
         assert batch.shape[0] == spec.num_views, (batch.shape, spec.num_views)
         return utt, batch, labels
 
+    def build_raw(self, idx: int, epoch: int = 0) -> Dict:
+        """Decode and co-crop only, for the on-device composer
+        (``data/device_pipeline``): {'utt', 'anchor' [T], 'reals' [n_real,
+        T], 'vocoded' [n_voc, T], 'spoofs' [n_spoof, T]}.  Only the roles
+        the variant's recipe consumes are loaded, as ``build`` gates them:
+        the composer concatenates whatever arrives, so spoofs decoded for
+        augall_3 would train augall_5's recipe."""
+        spec = self.spec
+        rng = self._rng(idx, epoch)
+        utt = self.files[idx]
+        anchor = self._load(os.path.join(self.bonafide_dir, utt))
+        uses_reals = spec.variant != "xinwang"
+        uses_spoofs = spec.variant in ("augall_5", "scl_normal")
+        reals = [
+            self._load(os.path.join(self.bonafide_dir, self.files[i]))
+            for i in _sample_distinct(rng, len(self.files), spec.num_additional_real,
+                                      exclude=idx)
+        ] if (uses_reals and spec.num_additional_real) else []
+        voc = ([self._load(os.path.join(self.vocoded_dir, f"{v}_{utt}"))
+                for v in spec.vocoders] if spec.variant != "scl_normal" else [])
+        spoofs = []
+        if uses_spoofs and spec.num_additional_spoof:
+            picks = _sample_distinct(rng, len(self.spoof_list), spec.num_additional_spoof)
+            spoofs = [self._load(os.path.join(*self.spoof_list[i])) for i in picks]
+        stack = multiview_pad([anchor] + reals + voc + spoofs, spec.trim_length,
+                              repeat_pad=spec.repeat_pad, random_trim=True,
+                              rng=rng).astype(np.float32)
+        nr, nv = len(reals), len(voc)
+        return {"utt": utt, "anchor": stack[0], "reals": stack[1:1 + nr],
+                "vocoded": stack[1 + nr:1 + nr + nv], "spoofs": stack[1 + nr + nv:]}
+
 
 class EvalDataset:
     """Fixed-length eval items: audio from ``<base>/eval/<utt>`` (SCL

@@ -1,7 +1,7 @@
 """Host data pipeline: batches built ahead of the device in a producer
 thread.
 
-Counterpart of ``TrainLoader`` and ``EvalLoader`` in
+Counterpart of ``TrainLoader``, ``DeviceAugTrainLoader`` and ``EvalLoader`` in
 ``scl_deepfake_audio_detection_tpu/data/loader.py``.  Items (audio IO and
 DSP; numpy releases the GIL) are built in a thread pool and assembled in
 index order, ``prefetch`` batches ahead of the consumer.  Batches stay
@@ -107,6 +107,15 @@ class TrainLoader:
             order = order[: len(order) - len(order) % self.groups]
         return order
 
+    # what a loader flavour overrides: the builder call and the batch
+    def _build_one(self, i: int, epoch: int):
+        return self.builder.build(int(i), epoch)
+
+    def _assemble(self, items) -> Dict:
+        return {"wav": np.stack([w for _, w, _ in items]),
+                "labels": np.stack([l for _, _, l in items]),
+                "utts": [u for u, _, _ in items]}
+
     def epoch(self, epoch: int = 0) -> Iterator[Dict]:
         order = self._epoch_order(epoch)
         steps = [order[i : i + self.groups] for i in range(0, len(order), self.groups)]
@@ -115,12 +124,36 @@ class TrainLoader:
             for step_idx in steps:
                 if stop.is_set():
                     return
-                items = list(pool.map(lambda i: self.builder.build(int(i), epoch), step_idx))
-                yield {"wav": np.stack([w for _, w, _ in items]),
-                       "labels": np.stack([l for _, _, l in items]),
-                       "utts": [u for u, _, _ in items]}
+                yield self._assemble(list(pool.map(lambda i: self._build_one(i, epoch),
+                                                   step_idx)))
 
         return _prefetched(produce, self.num_workers, self.prefetch)
+
+
+class DeviceAugTrainLoader(TrainLoader):
+    """``TrainLoader`` for the on-device composer: the workers only decode
+    and co-crop (``SCLViewBatchBuilder.build_raw``), and a batch is
+    {'anchors', 'reals', 'vocoded', 'spoofs', 'utts'} raw stacks for
+    ``data/device_pipeline.DeviceViewComposer``.  ``wire_dtype='int16'``
+    ships PCM16, half the host -> device bytes."""
+
+    def __init__(self, *args, wire_dtype: str = "float32", **kw):
+        super().__init__(*args, **kw)
+        if wire_dtype not in ("float32", "int16"):
+            raise ValueError(f"wire_dtype must be float32 or int16, got {wire_dtype}")
+        self.wire_dtype = wire_dtype
+
+    def _wire(self, x: np.ndarray) -> np.ndarray:
+        return pcm16_encode(x) if self.wire_dtype == "int16" else x
+
+    def _build_one(self, i: int, epoch: int):
+        return self.builder.build_raw(int(i), epoch)
+
+    def _assemble(self, items) -> Dict:
+        return {"utts": [d["utt"] for d in items],
+                **{k: self._wire(np.stack([d[role] for d in items]))
+                   for k, role in (("anchors", "anchor"), ("reals", "reals"),
+                                   ("vocoded", "vocoded"), ("spoofs", "spoofs"))}}
 
 
 class EvalLoader:

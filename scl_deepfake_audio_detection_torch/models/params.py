@@ -13,14 +13,14 @@ read a checkpoint the port trained.
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from scl_deepfake_audio_detection_torch.models.base import Conv1d, LayerNorm, Linear
-from scl_deepfake_audio_detection_torch.utils.tree import SEP, unflatten
+from scl_deepfake_audio_detection_torch.utils.tree import SEP, keyed_leaves, unflatten
 
 _STACKED = ("encoder", "layers")  # the XLS-R layer stack, under "ssl" in a full model
 _LEAF_NAMES = {"w": "weight", "scale": "weight", "b": "bias", "bias": "bias"}
@@ -49,9 +49,8 @@ def _torch_leaf(path: tuple, arr: np.ndarray) -> Tuple[str, torch.Tensor]:
     *mod, leaf = path
     if leaf not in _LEAF_NAMES:
         raise KeyError(f"unknown parameter leaf {'/'.join(path)}")
-    if leaf == "w":
-        # linear [in, out] -> [out, in]; conv [K, Cin/g, Cout] -> [Cout, Cin/g, K]
-        arr = arr.T if arr.ndim == 2 else arr.transpose(2, 1, 0)
+    # linear [in, out] -> [out, in]; conv [K, Cin/g, Cout] -> [Cout, Cin/g, K]
+    arr = jax_layout(leaf, arr)
     key = ".".join(mod + [_LEAF_NAMES[leaf]])
     return key, torch.from_numpy(np.array(arr, copy=True))
 
@@ -122,3 +121,39 @@ def to_jax(model: nn.Module, host: bool = True):
     for path, per in stacked.items():
         flat[path] = stack([per[i] for i in range(len(per))])
     return unflatten({SEP.join(p): a for p, a in flat.items()})
+
+
+def jax_leaf_map(model: nn.Module) -> List[Tuple[str, List[str]]]:
+    """(``//`` path of the leaf in the JAX tree, the port parameter names it
+    holds) for every leaf, in ``jax.tree_util``'s leaf order, the order of
+    optax's per-parameter state.  A stacked encoder leaf names its L layers'
+    parameters, layer 0 first."""
+    leaves: Dict[tuple, Dict[int, str]] = {}
+    for prefix, m in model.named_modules():
+        if not isinstance(m, (Linear, Conv1d, LayerNorm)):
+            continue
+        norm = isinstance(m, LayerNorm)
+        for attr, leaf in (("weight", "scale" if norm else "w"),
+                           ("bias", "bias" if norm else "b")):
+            if getattr(m, attr) is None:
+                continue
+            path = tuple(prefix.split(".")) + (leaf,)
+            n = _stack_end(path)
+            key, i = (path[:n] + path[n + 1:], int(path[n])) if n else (path, 0)
+            leaves.setdefault(key, {})[i] = f"{prefix}.{attr}"
+    by_path = {SEP.join(p): [per[i] for i in range(len(per))] for p, per in leaves.items()}
+    return [(path, by_path[path])
+            for _, path in keyed_leaves(unflatten({p: p for p in by_path}))]
+
+
+def jax_layout(path: str, t: np.ndarray) -> np.ndarray:
+    """One layer's leaf at ``path`` between torch and JAX layout (``w``
+    transposed); its own inverse."""
+    if path.endswith("w"):
+        return t.T if t.ndim == 2 else t.transpose(2, 1, 0)
+    return t
+
+
+def is_stacked(path: str) -> bool:
+    """Whether the JAX leaf at ``path`` stacks the encoder layers."""
+    return _stack_end(tuple(path.split(SEP))) > 0

@@ -15,7 +15,8 @@ stays in the compute dtype.
 
 Training: the dropouts sit where the JAX package applies them (their rates
 are 0.0 in every preset); ``remat`` recomputes each encoder layer in the
-backward through ``torch.utils.checkpoint``.
+backward through ``torch.utils.checkpoint``, with the JAX package's four
+policies (``XLSRConfig``).
 """
 
 from __future__ import annotations
@@ -25,11 +26,15 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from scl_deepfake_audio_detection_torch.models.base import Conv1d, LayerNorm, Linear
 from scl_deepfake_audio_detection_torch.ops.attention import IMPLS, self_attention
-from scl_deepfake_audio_detection_torch.ops.layers import dropout, gelu
+from scl_deepfake_audio_detection_torch.ops.layers import dropout, gelu, linear
 from scl_deepfake_audio_detection_torch.utils.device import torch_dtype
 
 
@@ -39,15 +44,27 @@ class XLSRConfig:
     layer_norm``, ``layer_norm_first=True``) and its runtime policy.
 
     Training fields: the three dropout rates; ``remat`` with
-    ``remat_policy`` 'full' (recompute the whole layer) or 'attn' (keep the
-    layer input and the o-projection output, recompute the rest, the flash
-    forward included) and ``remat_tail_full`` (the last K layers not
-    recomputed); ``fast_bwd_matmuls`` (None = on under bf16 compute: the
-    encoder linears cast their incoming gradient to bf16 before the
-    transpose GEMMs); ``grad_stack_dtype`` (None, or the compute dtype: the
-    per-call weight cast already gives the JAX package's bf16 weight-grad
-    stacks under bf16 compute).  ``scan_unroll`` has no meaning for a Python
-    loop and is carried for config parity."""
+    ``remat_policy``
+
+    - 'full': recompute the whole layer;
+    - 'attn': keep the layer input and the o-projection output
+      (``attn_out``), recompute the rest, the flash forward included;
+    - 'attn_ffn': keep the GELU output (``ffn_act``) as well;
+    - 'dots': keep the outputs of the matmuls with no batch dims (the six
+      linears; JAX's ``dots_with_no_batch_dims_saveable``) and recompute
+      everything else, the attention core included;
+
+    and ``remat_tail_full`` (the last K layers not recomputed);
+    ``fast_bwd_matmuls`` (None = on under bf16 compute: the encoder linears
+    cast their incoming gradient to bf16 before the transpose GEMMs);
+    ``grad_stack_dtype`` (None, or a dtype the six encoder matmul weights
+    are rounded to before the layers run: the forward then runs on the
+    rounded weights and their gradients come back rounded to it, upcast to
+    the fp32 masters.  Under bf16 compute the per-call weight cast already
+    does this, so None and 'bfloat16' are the same there; under fp32 compute
+    'bfloat16' changes the numerics, as in the JAX package).
+    ``scan_unroll`` has no meaning for a Python loop and is carried for
+    config parity."""
 
     conv_layers: Tuple[Tuple[int, int, int], ...] = (
         (512, 10, 5),
@@ -175,16 +192,28 @@ class SelfAttention(nn.Module):
         self.o = Linear(d, d)
 
 
-REMAT_POLICIES = ("full", "attn")
+REMAT_POLICIES = ("full", "attn", "attn_ffn", "dots")
+# the ops whose outputs remat 'dots' keeps: 2-D matmuls, which have no batch
+# dims (the attention products of the plain version are batched: bmm)
+_DOTS = (torch.ops.aten.mm, torch.ops.aten.addmm)
 
 
-def _layer_generator(seed: Optional[int], block: int,
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op.overloadpacket in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _dots_contexts():
+    return create_selective_checkpoint_contexts(_save_dots)
+
+
+def _layer_generator(seed: Optional[int], site: int,
                      device: torch.device) -> Optional[torch.Generator]:
-    """A fresh generator per (layer seed, block), so a recomputed block draws
-    the masks its first run drew."""
+    """A fresh generator per (layer seed, dropout site), so a recomputed
+    part draws the masks its first run drew, whichever parts remat cuts."""
     if seed is None:
         return None
-    return torch.Generator(device=device).manual_seed(seed * 2 + block)
+    return torch.Generator(device=device).manual_seed(seed * 4 + site)
 
 
 class EncoderLayer(nn.Module):
@@ -202,39 +231,63 @@ class EncoderLayer(nn.Module):
         self.fc1 = Linear(d, f)
         self.fc2 = Linear(f, d)
 
+    def _linear(self, lin: Linear, x: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        w = lin.weight
+        if cfg.grad_stack_dtype is not None:
+            w = w.to(torch_dtype(cfg.grad_stack_dtype))
+        return linear(x, w, lin.bias, torch_dtype(cfg.compute_dtype), cfg.use_fast_bwd)
+
     def attn_block(self, x: torch.Tensor, kv_len: Optional[int] = None,
                    train: bool = False, seed: Optional[int] = None) -> torch.Tensor:
         """x -> attn_out, the fp32 o-projection output."""
         cfg = self.cfg
-        cdtype, fb = torch_dtype(cfg.compute_dtype), cfg.use_fast_bwd
+        cdtype = torch_dtype(cfg.compute_dtype)
         b, t, d = x.shape
         h, hd = cfg.num_heads, cfg.head_dim
         y = self.ln_attn(x)
         # q is scaled after the fp32 linear, then everything goes to the
         # compute dtype in [B, H, T, D], contiguous for the kernel
-        q = self.attn.q(y, cdtype, fb) * (hd ** -0.5)
-        k = self.attn.k(y, cdtype, fb)
-        v = self.attn.v(y, cdtype, fb)
+        q = self._linear(self.attn.q, y) * (hd ** -0.5)
+        k = self._linear(self.attn.k, y)
+        v = self._linear(self.attn.v, y)
         q, k, v = (z.view(b, t, h, hd).transpose(1, 2)
                    .to(cdtype, memory_format=torch.contiguous_format).contiguous()
                    for z in (q, k, v))
         a = self_attention(q, k, v, kv_len=kv_len, impl=cfg.attention_impl)
         a = dropout(a, cfg.attention_dropout, train, _layer_generator(seed, 0, x.device))
         a = a.transpose(1, 2).reshape(b, t, d)
-        return self.attn.o(a, cdtype, fb)
+        return self._linear(self.attn.o, a)
+
+    def _residual(self, x, attn_out, train, seed):
+        gen = _layer_generator(seed, 1, x.device)
+        return x + dropout(attn_out, self.cfg.dropout, train, gen).to(x.dtype)
+
+    def _ffn_act(self, x1):
+        return gelu(self._linear(self.fc1, self.ln_ffn(x1)), self.cfg.approx_gelu)
+
+    def _ffn_out(self, x1, act, train, seed):
+        cfg = self.cfg
+        act = dropout(act, cfg.activation_dropout, train, _layer_generator(seed, 2, x1.device))
+        y = self._linear(self.fc2, act)
+        return x1 + dropout(y, cfg.dropout, train,
+                            _layer_generator(seed, 3, x1.device)).to(x1.dtype)
 
     def ffn_block(self, x: torch.Tensor, attn_out: torch.Tensor,
                   train: bool = False, seed: Optional[int] = None) -> torch.Tensor:
         """(layer input, attn_out) -> layer output."""
-        cfg = self.cfg
-        cdtype, fb = torch_dtype(cfg.compute_dtype), cfg.use_fast_bwd
-        gen = _layer_generator(seed, 1, x.device)
-        x = x + dropout(attn_out, cfg.dropout, train, gen).to(x.dtype)
-        y = self.ln_ffn(x)
-        y = gelu(self.fc1(y, cdtype, fb), cfg.approx_gelu)
-        y = dropout(y, cfg.activation_dropout, train, gen)
-        y = self.fc2(y, cdtype, fb)
-        return x + dropout(y, cfg.dropout, train, gen).to(x.dtype)
+        x1 = self._residual(x, attn_out, train, seed)
+        return self._ffn_out(x1, self._ffn_act(x1), train, seed)
+
+    def ffn_act_block(self, x, attn_out, train=False, seed=None):
+        """(layer input, attn_out) -> (x1 = x + attn_out, ffn_act the GELU
+        output)."""
+        x1 = self._residual(x, attn_out, train, seed)
+        return x1, self._ffn_act(x1)
+
+    def ffn_out_block(self, x1, act, train=False, seed=None):
+        """(x1, ffn_act) -> layer output."""
+        return self._ffn_out(x1, act, train, seed)
 
     def _layer(self, x, kv_len, train, seed):
         return self.ffn_block(x, self.attn_block(x, kv_len, train, seed), train, seed)
@@ -242,15 +295,25 @@ class EncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor, kv_len: Optional[int] = None,
                 train: bool = False, seed: Optional[int] = None,
                 remat: Optional[str] = None) -> torch.Tensor:
-        """``remat``: None, 'full' (one checkpoint over the layer) or 'attn'
-        (one over each block, so the backward keeps exactly the layer input
-        and attn_out).  ``seed`` seeds the layer's dropout draws."""
+        """``remat``: None or a policy of ``XLSRConfig``.  'full' and 'dots'
+        put one checkpoint over the layer ('dots' keeps the matmul outputs
+        in it); 'attn' and 'attn_ffn' put one over each part between the
+        kept tensors.  ``seed`` seeds the layer's dropout draws."""
+        ck = dict(use_reentrant=False)
         if remat is None:
             return self._layer(x, kv_len, train, seed)
         if remat == "full":
-            return checkpoint(self._layer, x, kv_len, train, seed, use_reentrant=False)
-        a = checkpoint(self.attn_block, x, kv_len, train, seed, use_reentrant=False)
-        return checkpoint(self.ffn_block, x, a, train, seed, use_reentrant=False)
+            return checkpoint(self._layer, x, kv_len, train, seed, **ck)
+        if remat == "dots":
+            return checkpoint(self._layer, x, kv_len, train, seed,
+                              context_fn=_dots_contexts, **ck)
+        a = checkpoint(self.attn_block, x, kv_len, train, seed, **ck)
+        if remat == "attn":
+            return checkpoint(self.ffn_block, x, a, train, seed, **ck)
+        # x1 = x + attn_out leaves the middle part, so that its gradient
+        # sums as without remat (one [B, T, D] tensor kept beside ffn_act)
+        x1, act = checkpoint(self.ffn_act_block, x, a, train, seed, **ck)
+        return checkpoint(self.ffn_out_block, x1, act, train, seed, **ck)
 
 
 class Encoder(nn.Module):
@@ -272,16 +335,11 @@ class XLSR(nn.Module):
         if cfg.attention_impl not in IMPLS:
             raise ValueError(f"attention_impl must be one of {IMPLS}, "
                              f"got {cfg.attention_impl!r}")
-        if cfg.remat_policy in ("attn_ffn", "dots"):
-            raise NotImplementedError(f"remat_policy={cfg.remat_policy!r} not ported yet")
         if cfg.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}, "
                              f"got {cfg.remat_policy!r}")
-        if (cfg.grad_stack_dtype is not None
-                and torch_dtype(cfg.grad_stack_dtype) != torch_dtype(cfg.compute_dtype)):
-            raise NotImplementedError(
-                f"grad_stack_dtype={cfg.grad_stack_dtype!r} under compute_dtype="
-                f"{cfg.compute_dtype!r} not ported yet")
+        if cfg.grad_stack_dtype is not None:
+            torch_dtype(cfg.grad_stack_dtype)  # ValueError on an unknown name
         self.cfg = cfg
         last = cfg.conv_layers[-1][0]
         self.feature_extractor = FeatureExtractor(cfg)

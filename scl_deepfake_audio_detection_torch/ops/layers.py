@@ -20,6 +20,8 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from scl_deepfake_audio_detection_torch.utils.tree import keyed_leaves
+
 
 def dewire_pcm16(x: torch.Tensor) -> torch.Tensor:
     """Inverse of the int16 PCM wire format (``utils.audio_io.pcm16_encode``):
@@ -147,19 +149,6 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     return y.transpose(1, 2)
 
 
-def _keyed_leaves(tree, path: str = ""):
-    """(JAX ``keystr`` path, leaf) pairs in ``jax.tree_util``'s order: dict
-    keys sorted, list items in order."""
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _keyed_leaves(tree[k], f"{path}[{k!r}]")
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _keyed_leaves(v, f"{path}[{i}]")
-    else:
-        yield path, tree
-
-
 def _size(leaf) -> int:
     n = 1
     for d in leaf.shape:
@@ -170,14 +159,14 @@ def _size(leaf) -> int:
 def param_count(params) -> int:
     """Parameters in a tree whose leaves have a ``shape`` (numpy arrays,
     tensors, ``meta`` tensors)."""
-    return sum(_size(v) for _, v in _keyed_leaves(params))
+    return sum(_size(v) for _, v in keyed_leaves(params))
 
 
 def param_table(params) -> str:
     """Per-leaf table of a JAX-layout parameter tree: path, count, share,
     shape, as the JAX package prints it (the reference's
     ``core_scripts/other_tools/script_model_para.py:26-43``)."""
-    leaves = list(_keyed_leaves(params))
+    leaves = list(keyed_leaves(params))
     total = sum(_size(v) for _, v in leaves)
     lines = [f"Parameter number: {total:d}"]
     for name, v in leaves:

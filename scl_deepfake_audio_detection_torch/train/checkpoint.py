@@ -6,13 +6,27 @@ A checkpoint is one ``.npz``: arrays under ``//``-joined tree paths plus a
 beside it; older files keep that JSON only in the sidecar.  (Format of
 ``scl_deepfake_audio_detection_tpu/train/checkpoint.py``.)
 
-A train state keeps the parameters under ``params`` in the JAX tree names
-and layouts (``models/params.to_jax``), so the JAX package reads a
-port-trained model, and the optimizer under the port's own ``opt`` keys
-(``train/optim.Optimizer.state_arrays``: torch layout, keyed by parameter
-name); ``epoch``, ``best``, ``es_counter``, ``es_metric`` and ``seed`` go
-in the metadata.  Reading the optimizer moments of a JAX checkpoint is not
-ported yet.
+A train state is the JAX package's, so each package resumes the other's:
+
+- ``params``: the JAX tree names and layouts (``models/params.to_jax``);
+- ``opt_state_leaves``: optax's state leaves in its own order, ``{"0": ...,
+  "1": ...}``, for the chains ``train/optim.make_optimizer`` builds there
+  (``inject_hyperparams(adamw)``, under ``clip_by_global_norm`` and/or
+  ``MultiSteps``; the layout of optax 0.2).  With accumulation first
+  ``mini_step`` and ``gradient_step``; then the step count, the six
+  hyperparameters (b1, b2, eps, eps_root, learning_rate, weight_decay), the
+  step count again, the first moments and the second moments, each over
+  the parameters in ``jax.tree_util`` order; with accumulation last the
+  running mean of the gradients.  Clipping adds no leaf;
+- ``rng``: the JAX run's PRNG key data.  The port draws from
+  ``torch.Generator``s, so a key cannot carry its stream across: the port
+  keeps a resumed JAX state's ``rng`` leaf as it is and writes it back, and
+  a run of its own writes ``jax.random.key(seed)``'s data;
+- ``epoch``, ``best``, ``es_counter``, ``es_metric`` (and ``seed`` from the
+  port) in the metadata.
+
+``average_checkpoints`` and ``load_pretrained_partially`` are the JAX
+package's, on numpy trees.
 """
 
 from __future__ import annotations
@@ -26,8 +40,14 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from scl_deepfake_audio_detection_torch.models.params import load_jax_params, to_jax
-from scl_deepfake_audio_detection_torch.utils.tree import flatten, unflatten
+from scl_deepfake_audio_detection_torch.models.params import (
+    is_stacked,
+    jax_layout,
+    jax_leaf_map,
+    load_jax_params,
+    to_jax,
+)
+from scl_deepfake_audio_detection_torch.utils.tree import flatten, keyed_leaves, unflatten
 
 _META_KEY = "__scl_meta__"
 
@@ -114,14 +134,136 @@ class AsyncWriter:
             raise err
 
 
+def average_checkpoints(paths, out_path: Optional[str] = None):
+    """Leaf-wise average of checkpoints (an SWA-style final model), as the
+    JAX package's: params-only or full train states; the optimizer leaves
+    (``opt_state_leaves*``) and ``rng_key`` are dropped.  Float leaves
+    average in float64 and are cast back to the first file's dtype; other
+    leaves take the first file's value.  Key sets and shapes must match.
+    Returns ``(flat_arrays, extra)``; with ``out_path`` it also writes them."""
+    if len(paths) < 2:
+        raise ValueError("--average_ckpts needs at least two checkpoints")
+
+    def keep(k: str) -> bool:
+        return k != _META_KEY and k != "rng_key" and not k.startswith("opt_state_leaves")
+
+    flats = []
+    for p in paths:
+        with np.load(p, allow_pickle=False) as z:
+            flats.append({k: z[k] for k in z.files if keep(k)})
+    base = flats[0]
+    for p, f in zip(paths[1:], flats[1:]):
+        if set(f) != set(base):
+            missing = set(base) ^ set(f)
+            raise ValueError(f"{p} has a different key set than {paths[0]} "
+                             f"(differs on e.g. {sorted(missing)[:3]})")
+        for k in base:
+            if f[k].shape != base[k].shape:
+                raise ValueError(f"shape mismatch at {k}: {paths[0]} {base[k].shape} "
+                                 f"vs {p} {f[k].shape}")
+    avg: Dict[str, np.ndarray] = {}
+    for k in base:
+        if np.issubdtype(base[k].dtype, np.floating):
+            acc = np.zeros(base[k].shape, np.float64)
+            for f in flats:
+                acc += np.asarray(f[k], np.float64)
+            avg[k] = (acc / len(flats)).astype(base[k].dtype)
+        else:
+            avg[k] = base[k]
+    extra = {"averaged_from": [os.path.abspath(p) for p in paths]}
+    if out_path:
+        _write_flat(out_path, avg, extra)
+    return avg, extra
+
+
+# the AdamW constants of optax's adamw and of train/optim.Optimizer
+_ADAM_CONSTANTS = {"b1": 0.9, "b2": 0.999, "eps": 1e-8, "eps_root": 0.0}
+
+
+def seed_key_data(seed: int) -> np.ndarray:
+    """The data of ``jax.random.key(seed)`` as JAX makes it by default
+    (threefry, 32-bit seeds: [0, the seed's low word])."""
+    return np.array([0, seed & 0xFFFFFFFF], np.uint32)
+
+
+def pack_opt_leaves(model: torch.nn.Module, optimizer) -> Dict[str, np.ndarray]:
+    """The optimizer's state as optax's leaves, ``{str(i): leaf}`` (the
+    layout is in the module docstring)."""
+    arrays = optimizer.state_arrays()
+    step = int(arrays["step"])
+
+    def per_param(prefix):
+        out = []
+        for path, names in jax_leaf_map(model):
+            layers = [jax_layout(path, _host(arrays[f"{prefix}//{n}"])
+                                 if f"{prefix}//{n}" in arrays
+                                 else np.zeros(model.get_parameter(n).shape, np.float32))
+                      for n in names]
+            out.append(np.stack(layers) if is_stacked(path) else layers[0])
+        return out
+
+    hyper = {**_ADAM_CONSTANTS, "learning_rate": optimizer.lr,
+             "weight_decay": optimizer.weight_decay}
+    leaves = [np.int32(step), *(np.float32(hyper[k]) for k in sorted(hyper)),
+              np.int32(step), *per_param("exp_avg"), *per_param("exp_avg_sq")]
+    if optimizer.accum_steps > 1:
+        leaves = [np.int32(optimizer.mini_step), np.int32(step), *leaves, *per_param("acc")]
+    return {str(i): np.asarray(l) for i, l in enumerate(leaves)}
+
+
+def unpack_opt_leaves(leaves, model: torch.nn.Module, optimizer) -> None:
+    """Load optax's leaves (a list, or ``{str(i): leaf}``) into
+    ``optimizer``; the learning rate and weight decay come from the
+    checkpoint, as optax resumes its injected hyperparameters.  Raises
+    ``ValueError`` when the leaves do not fit this optimizer's chain."""
+    if isinstance(leaves, dict):
+        leaves = [leaves[str(i)] for i in range(len(leaves))]
+    leaf_map = jax_leaf_map(model)
+    n_p = len(leaf_map)
+    accum = optimizer.accum_steps > 1
+    want = 8 + 2 * n_p + (2 + n_p if accum else 0)
+    if len(leaves) != want:
+        raise ValueError(f"optimizer state has {len(leaves)} leaves; this optimizer "
+                         f"(grad_accum_steps={optimizer.accum_steps}) over {n_p} "
+                         f"parameter leaves takes {want}")
+    arrays: Dict[str, Any] = {}
+    if accum:
+        arrays["mini_step"] = int(leaves[0])
+        leaves = leaves[2:]
+    names = sorted(list(_ADAM_CONSTANTS) + ["learning_rate", "weight_decay"])
+    hyper = {k: float(v) for k, v in zip(names, leaves[1:7])}
+    for k, v in _ADAM_CONSTANTS.items():
+        if not np.isclose(hyper[k], v, rtol=1e-6, atol=0.0):
+            raise ValueError(f"optimizer state has {k}={hyper[k]}; the port's AdamW "
+                             f"uses {v}")
+    arrays["step"] = int(leaves[7])
+
+    def per_param(prefix, block):
+        for (path, names_), leaf in zip(leaf_map, block):
+            leaf = np.asarray(leaf)
+            layers = list(leaf) if is_stacked(path) else [leaf]
+            for n, a in zip(names_, layers):
+                arrays[f"{prefix}//{n}"] = jax_layout(path, a)
+
+    per_param("exp_avg", leaves[8:8 + n_p])
+    per_param("exp_avg_sq", leaves[8 + n_p:8 + 2 * n_p])
+    if accum:
+        per_param("acc", leaves[8 + 2 * n_p:])
+    optimizer.load_state_arrays(arrays)
+    optimizer.set_hyperparams(hyper["learning_rate"], hyper["weight_decay"])
+
+
 def save_train_state(path: str, model: torch.nn.Module, optimizer, epoch: int,
                      seed: int, best: float, writer: Optional[AsyncWriter] = None,
                      es_counter: int = 0, es_metric: str = "acc") -> None:
-    """Everything a resume needs: parameters (JAX tree), optimizer state,
-    epoch, the run's seed, the early-stop watermark ``best``, its patience
-    counter and which metric it tracks.  The host copy is made here; with a
-    ``writer`` the npz write runs on its thread."""
-    state = {"params": to_jax(model), "opt": optimizer.state_arrays()}
+    """Everything a resume needs, in the JAX package's layout: parameters,
+    optax's optimizer leaves, the ``rng`` leaf (the resumed JAX state's, or
+    ``seed``'s key), epoch, the run's seed, the early-stop watermark
+    ``best``, its patience counter and which metric it tracks.  The host
+    copy is made here; with a ``writer`` the npz write runs on its thread."""
+    rng = optimizer.rng_key_data
+    state = {"params": to_jax(model), "opt_state_leaves": pack_opt_leaves(model, optimizer),
+             "rng": seed_key_data(seed) if rng is None else rng}
     flat = {k: _host(v) for k, v in flatten(state).items()}
     extra = {"epoch": int(epoch), "best": float(best), "es_counter": int(es_counter),
              "es_metric": str(es_metric), "seed": int(seed)}
@@ -132,9 +274,32 @@ def save_train_state(path: str, model: torch.nn.Module, optimizer, epoch: int,
 
 
 def load_train_state(path: str, model: torch.nn.Module, optimizer):
-    """Load a train state into ``model`` and ``optimizer``.  Returns
+    """Load a train state of either package into ``model`` and
+    ``optimizer``, which keeps its ``rng`` leaf for the next save.  Returns
     (epoch, best, extra)."""
     tree, extra = load(path)
     load_jax_params(model, tree["params"])
-    optimizer.load_state_arrays(flatten(tree["opt"]))
+    unpack_opt_leaves(tree["opt_state_leaves"], model, optimizer)
+    optimizer.rng_key_data = np.asarray(tree["rng"])
     return int(extra["epoch"]), float(extra["best"]), extra
+
+
+def load_pretrained_partially(params, pretrained, subtrees=None):
+    """Overlay matching subtrees of a pretrained parameter tree onto
+    ``params`` (NII ``f_load_pretrained_model_partially``), on nested
+    dict/list trees in the JAX layout.  ``subtrees``: the top-level keys to
+    take (default: every key in both).  Leaf paths and shapes must match;
+    a missing leaf raises ``KeyError``, a shape ``ValueError``, naming the
+    path as the JAX package does."""
+    out = dict(params)
+    keys = subtrees if subtrees is not None else [k for k in pretrained if k in params]
+    for k in keys:
+        new = dict(keyed_leaves(pretrained[k]))
+        for ks, leaf in keyed_leaves(params[k]):
+            if ks not in new:
+                raise KeyError(f"pretrained tree missing {k}{ks}")
+            if tuple(np.shape(new[ks])) != tuple(np.shape(leaf)):
+                raise ValueError(f"shape mismatch at {k}{ks}: "
+                                 f"{np.shape(new[ks])} vs {np.shape(leaf)}")
+        out[k] = pretrained[k]
+    return out

@@ -49,10 +49,21 @@ class Optimizer:
         self.accum_steps = max(int(grad_accum_steps), 1)
         self.mini_step = 0
         self.acc = None  # running mean of the gradients of this cycle
+        # a resumed JAX train state's PRNG key data, written back on save
+        # (train/checkpoint); the port draws nothing from it
+        self.rng_key_data = None
 
     @property
     def lr(self) -> float:
         return self.adamw.param_groups[0]["lr"]
+
+    @property
+    def weight_decay(self) -> float:
+        return self.adamw.param_groups[0]["weight_decay"]
+
+    def set_hyperparams(self, lr: float, weight_decay: float) -> None:
+        for group in self.adamw.param_groups:
+            group["lr"], group["weight_decay"] = float(lr), float(weight_decay)
 
     def zero_grad(self) -> None:
         for p in self.params:

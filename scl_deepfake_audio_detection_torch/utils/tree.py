@@ -3,9 +3,22 @@ the JAX package's checkpoints (``train/checkpoint.py`` there)."""
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Iterator, Tuple
 
 SEP = "//"
+
+
+def keyed_leaves(tree, path: str = "") -> Iterator[Tuple[str, Any]]:
+    """(JAX ``keystr`` path, leaf) pairs in ``jax.tree_util``'s order: dict
+    keys sorted, list items in order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from keyed_leaves(tree[k], f"{path}[{k!r}]")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from keyed_leaves(v, f"{path}[{i}]")
+    else:
+        yield path, tree
 
 
 def flatten(tree, prefix: str = "") -> Dict[str, Any]:

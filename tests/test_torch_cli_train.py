@@ -187,9 +187,9 @@ def test_show_params_prints_the_jax_table(mini_db, capsys):
 
 
 @pytest.mark.parametrize("argv,where", [
-    (["--device_aug"], "Slice B3"), (["--snr_mode", "rms"], "Slice B3"),
+    (["--calibrate", "1,0"], "Slice E"), (["--from_export", "d"], "Slice E"),
     (["--warm_cache"], "Slice C"), (["--decode_cache", "d"], "Slice C"),
-    (["--ssl_checkpoint", "x.pt"], "Slice E"), (["--bf16_grads"], "what Slice B left"),
+    (["--ssl_checkpoint", "x.pt"], "Slice E"), (["--parity_check", "x"], "Slice E"),
     (["--distill_from", "t.ckpt"], "Slice H"), (["--multihost"], "Slice H"),
     (["--mesh", "1,1"], "Slice H"), (["--zero1"], "Slice H"),
 ])
@@ -208,19 +208,40 @@ def test_cli_without_a_card_exits_nonzero_and_says_so(mini_db, capsys):
     assert "no CUDA device" in capsys.readouterr().err
 
 
-def test_cli_refuses_to_train_from_a_jax_train_state(mini_db, tmp_path, capsys):
-    """The port cannot read optax's optimizer leaves yet: training from a
-    JAX full train state exits 2 rather than resuming with fresh moments."""
-    from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
-    from scl_deepfake_audio_detection_torch.models.params import to_jax
-    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
-    from scl_deepfake_audio_detection_torch.train import checkpoint as ckpt
+def test_cli_refuses_to_train_from_a_jax_train_state(mini_db, tmp_path):
+    """(The name is from when the port refused.)  The port's CLI resumes a
+    train state the JAX package wrote, optimizer leaves included: it starts
+    at the next epoch with the saved watermark, and the JAX package resumes
+    the port's ``last.ckpt`` in turn, with its ``rng`` leaf carried through."""
+    import jax
+
+    from scl_deepfake_audio_detection_tpu.models.xlsr import XLSRConfig as JXLSRConfig
+    from scl_deepfake_audio_detection_tpu.train import checkpoint as jckpt
+    from scl_deepfake_audio_detection_tpu.train.engine import Engine as JEngine
+    from scl_deepfake_audio_detection_tpu.train.optim import set_learning_rate
+    from scl_deepfake_audio_detection_tpu.utils.config import TrainConfig as JTrainConfig
+    from scl_deepfake_audio_detection_tpu.utils.config import load_config as jload_config
+    from scl_deepfake_audio_detection_tpu.utils.registry import MODELS as JMODELS
 
     root, cfg, _ = mini_db
-    model = LinearNLL(ssl=XLSRConfig.tiny(), device="cpu")
+    jcfg = jload_config(cfg)
+    jmodel = JMODELS.get(jcfg.model.name).from_config(
+        jcfg.model, ssl=JXLSRConfig.tiny(compute_dtype="float32", remat=True))
+    jeng = JEngine(jmodel, JTrainConfig())
+    params, _, opt = jeng.init_state(jax.random.key(3))
+    opt = set_learning_rate(opt, 1e-6)
+    key = jax.random.key(11)
     path = str(tmp_path / "jax_last.ckpt")
-    ckpt.save(path, {"params": to_jax(model), "opt_state_leaves": [np.zeros(3, np.float32)]},
-              extra={"epoch": 0})
-    rc = port_main(["--config", cfg, "--database_path", str(root), "--model_path", path,
-                    *TRAIN])
-    assert rc == 2 and "not ported yet" in capsys.readouterr().err
+    jckpt.save_train_state(path, params, opt, 0, key, 12.5, es_counter=1, es_metric="eer")
+    out = tmp_path / "out"
+    rc, log = _run(["--config", cfg, "--database_path", str(root), "--model_path", path,
+                    "--out_dir", str(out), *TRAIN])
+    assert rc == 0, log
+    assert "resuming full train state at epoch 1 (best so far 12.5000)" in log, log
+    assert "epoch 1: lr=" in log and "epoch 0:" not in log
+    last = str(out / os.listdir(out)[0] / "last.ckpt")
+    tmpl = jeng.init_state(jax.random.key(0))[2]
+    _, _, jopt, epoch, rng, best = jckpt.load_train_state(last, tmpl)
+    assert epoch == 1 and best == 12.5
+    assert np.array_equal(jax.random.key_data(rng), jax.random.key_data(key))
+    assert int(jopt.count) == 2  # two steps after the JAX state's none

@@ -151,8 +151,7 @@ def test_seeded_init_is_reproducible_and_seed_dependent():
 def test_training_entry_raises_not_ported():
     """Training is ported; a training option that is not raises."""
     with pytest.raises(NotImplementedError):
-        LinearNLL(ssl=XLSRConfig.tiny(remat=True, remat_policy="dots"), emb_dim=16,
-                  device="cpu")
+        LinearNLL(ssl=XLSRConfig.tiny(fuse_qkv=True), emb_dim=16, device="cpu")
     model = LinearNLL(ssl=XLSRConfig.tiny(), emb_dim=16, device="cpu")
     assert model.apply(torch.zeros(1, 4000), train=True).log_probs.requires_grad
 
@@ -242,7 +241,7 @@ def test_port_cli_eval_writes_the_jax_cli_rows(tmp_path):
     assert _rows(pout2) == got
 
 
-@pytest.mark.parametrize("argv", [["--train"], ["--device_aug"],
+@pytest.mark.parametrize("argv", [["--train"], ["--export_model", "d"],
                                   ["--eval", "--decode_cache", "c"], ["--serve"]])
 def test_port_cli_refuses_unported_modes(argv, capsys):
     from scl_deepfake_audio_detection_torch.cli import main as port_main

@@ -174,8 +174,8 @@ def ssl_tree():
 def test_xlsr_gradients_match_jax_and_agree_across_remat(ssl_tree, dtype):
     with _one_thread():
         grads = {r: _xlsr_grads(ssl_tree, dtype, r is not None, r or "attn")[0]
-                 for r in (None, "full", "attn")}
-    for r in ("full", "attn"):
+                 for r in (None, *PX.REMAT_POLICIES)}
+    for r in PX.REMAT_POLICIES:
         for n, a in grads[None].items():
             assert torch.equal(a, grads[r][n]), (r, n)
 
@@ -206,7 +206,7 @@ def test_dropout_draws_agree_across_remat(ssl_tree):
     kw = dict(dropout=0.1, attention_dropout=0.1, activation_dropout=0.1)
     with _one_thread():
         ref = _xlsr_grads(ssl_tree, "float32", False, train=True, seed=5, **kw)[0]
-        for policy in ("full", "attn"):
+        for policy in PX.REMAT_POLICIES:
             got = _xlsr_grads(ssl_tree, "float32", True, policy, train=True, seed=5, **kw)[0]
             assert all(torch.equal(ref[n], got[n]) for n in ref), policy
     other = _xlsr_grads(ssl_tree, "float32", False, train=True, seed=6, **kw)[0]
@@ -214,10 +214,10 @@ def test_dropout_draws_agree_across_remat(ssl_tree):
 
 
 @pytest.mark.parametrize("kw,err", [
-    ({"remat_policy": "dots"}, NotImplementedError),
-    ({"remat_policy": "attn_ffn"}, NotImplementedError),
+    ({"conv_impl": "gemm"}, NotImplementedError),
+    ({"conv_impl": "phase"}, NotImplementedError),
     ({"remat_policy": "everything"}, ValueError),
-    ({"grad_stack_dtype": "bfloat16"}, NotImplementedError),
+    ({"fuse_qkv": True}, NotImplementedError),
 ])
 def test_unported_training_options_raise(kw, err):
     with pytest.raises(err):
