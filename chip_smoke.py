@@ -50,9 +50,10 @@ Phases, each of which fails the script with a non-zero exit:
    beside the host path's, the host's ms per group through
    ``DeviceAugTrainLoader`` and the composer's ms per step.  Then remat
    (``phase_remat``): two train steps at [2, 11, 64000] bf16 under
-   'attn', 'attn_ffn', 'dots' and 'full', and one step with bf16
+   'attn', 'attn_ffn', 'dots' and 'full', and two steps with bf16
    weight-grad stacks under fp32 compute (``--bf16_grads``), each with
-   48 / 24 / 24 launches per step, ms per step and peak memory.  Between ``--eval`` and ``fit``, the
+   48 / 24 / 24 launches per step, ms of the second step and peak memory.
+   Between ``--eval`` and ``fit``, the
    eval modes at XLS-R 300M bf16 on a 32-utterance database with four
    clips of 150000-260000 samples (``phase_eval_modes``): ``--eval``, then
    ``--predict`` and ``--emb`` (held to its rows within 1e-5),
@@ -63,7 +64,19 @@ Phases, each of which fails the script with a non-zero exit:
    T > 256, each batch held against impl='reference'; and ``--analyze``,
    ``--compare``, ``--fuse`` and ``--fit_calibration``, which must exit 0,
    print the EER that ``compute_eer`` gives, and show no CUDA activity in
-   ``torch.profiler`` and no launch;
+   ``torch.profiler`` and no launch.  Then serving (``phase_serve``) at
+   XLS-R 300M bf16, batches of [16, 64600]: ``--serve`` through the CLI on
+   a pipe of 48 WAV requests (the first 16 replies equal ``--eval
+   --batch_size 16``'s cm1 to the printed 6 decimals), ``--calibrate a,b``
+   (a * raw + b, a missing file replying ``ERROR`` between scored lines),
+   the same requests as FLAC where the codec library builds (replies equal
+   the WAV ones); ``serving.make_server`` on 127.0.0.1:0 with 16 client
+   threads of 4 requests (JSON paths, uploads, one ``/score_batch``), its
+   replies within 1e-6 of the stdin ones, ``/metrics`` counting the
+   batches and the forward launched 24 times per batch from the
+   MicroBatcher's worker thread; utt/s, p50 and p99 request latency and
+   rows per batch; and ``--eval --decode_cache`` twice, each score file
+   equal to the run without a cache;
 6. times: CUDA-event times of each kernel at the training shape [22, 16,
    199, 64] bf16 (the forward also at the eval shape [16, 16, 201, 64]
    and at bucketed scoring's longest batch [16, 16, 349, 64]), replayed
@@ -86,7 +99,8 @@ callable, so that both times cover the same work.
 The JSON object with one entry per kernel comes two lines before the last
 (launches counted on the path of the training CLI with ``--device_aug``,
 with each path's counts under
-``launches_by_path``: ``eval``, ``eval_modes``, ``train``, ``train_cli``,
+``launches_by_path``: ``eval``, ``eval_modes``, ``serve`` (the stdin
+runs), ``serve_http``, ``train``, ``train_cli``,
 ``train_cli_device_aug`` and ``remat_<policy>_per_step``;
 the forward's times at bucketed scoring's longest batch [16, 16, 349, 64]
 under ``eval_modes``; times at the training shape, ``ms`` = ``graph_ms``,
@@ -104,6 +118,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -706,6 +721,297 @@ def phase_eval_modes(K, card, tmp):
     return path_launches
 
 
+SERVE = dict(batch=16, clients=16, per_client=4, calibrate=(2.0, 0.5), wait_ms=5.0)
+
+
+def _stdin_serve(K, cli, serve_mod, argv, lines):
+    """``--serve`` through the port's CLI in-process, its stdin a pipe that
+    holds ``lines``: (reply lines, wall s, forwards, launches, forward
+    window s).  Forwards are counted at ``cli.serve``'s ``score_step``."""
+    import contextlib
+    import io
+
+    forwards = []
+    real = serve_mod.score_step
+
+    def spy(model, block):
+        t0 = time.perf_counter()
+        out = real(model, block)
+        torch.cuda.synchronize()
+        forwards.append((t0, time.perf_counter()))
+        return out
+
+    r, w = os.pipe()
+    with os.fdopen(w, "w") as f:
+        f.write("".join(ln + "\n" for ln in lines))
+    out = io.StringIO()
+    stdin = sys.stdin
+    serve_mod.score_step = spy
+    K.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        with os.fdopen(r) as pipe, contextlib.redirect_stdout(out):
+            sys.stdin = pipe
+            rc = cli.main(argv)
+    finally:
+        sys.stdin = stdin
+        serve_mod.score_step = real
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"--serve exited {rc}")
+    replies = [ln.split("\t", 1) for ln in out.getvalue().splitlines()
+               if not ln.startswith("loaded checkpoint")]
+    window = forwards[-1][1] - forwards[0][0] if forwards else 0.0
+    return replies, wall, len(forwards), launches, window
+
+
+def phase_serve(K, card, tmp):
+    """The serving path at XLS-R 300M + LinearNLL, seeded random init, bf16,
+    [16, 64600] batches: ``--serve`` through the CLI on a pipe of 48 WAV
+    requests from ``phase_eval_modes``' database (its replies for the first
+    16 equal ``--eval --batch_size 16``'s cm1 to the printed 6 decimals),
+    ``--calibrate`` (a * raw + b) with a missing file among the lines (an
+    ``ERROR`` reply, the lines around it scored), the same utterances as
+    FLAC where the codec library builds; then ``serving.make_server`` on
+    127.0.0.1:0 with 16 client threads of 4 requests (JSON paths, uploads,
+    one ``/score_batch``), its replies within 1e-6 of the stdin replies and
+    ``flash_attn_fwd`` launched exactly 24 times per batch that the
+    MicroBatcher counted, from its worker thread; then ``--eval
+    --decode_cache`` twice, each score file equal to the run without it."""
+    import urllib.request
+
+    from scl_deepfake_audio_detection_torch import cli, native, serving
+    from scl_deepfake_audio_detection_torch.cli import serve as serve_mod
+    from scl_deepfake_audio_detection_torch.models.base import cast_matmul_params
+    from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.train.engine import score_step
+    from scl_deepfake_audio_detection_torch.utils.audio_io import load_audio
+    from scl_deepfake_audio_detection_torch.utils.config import load_config
+
+    c = SERVE
+    seed, sb = 1234, c["batch"]  # phase_main_path's seed: the same weights
+    t_phase = time.perf_counter()
+    layers = XLSRConfig.xlsr_300m().encoder_layers
+    db = os.path.join(tmp, "db")
+    utts, _ = _eval_modes_database(db)
+    paths = [os.path.join(db, u) for u in utts]
+    requests = paths + paths[:16]  # 48 requests
+    model_flags = ["--config", EVAL_CONFIG, "--ssl_preset", "xlsr_300m",
+                   "--compute_dtype", "bfloat16", "--seed", str(seed), "--device", "cuda"]
+    by_path = {"serve": {n: 0 for n in K.KERNELS}, "serve_http": {n: 0 for n in K.KERNELS}}
+
+    def expect(label, launches, forwards, path):
+        want = {name: 0 for name in K.KERNELS}
+        want["flash_attn_fwd"] = layers * forwards
+        if launches != want:
+            raise AssertionError(f"{label}: launched {launches}, expected {want}")
+        if path:
+            for name in K.KERNELS:
+                by_path[path][name] += launches[name]
+
+    # the reference: --eval --batch_size 16 (int16 wire, as phase_eval_modes)
+    eval_flags = model_flags + ["--eval", "--database_path", db, "--batch_size", str(sb),
+                                "--num_workers", "4", "--wire_dtype", "int16"]
+    ev_path = os.path.join(tmp, "eval.txt")
+    K.reset_launches()
+    t0 = time.perf_counter()
+    if cli.main(eval_flags + ["--eval_output", ev_path]) != 0:
+        raise AssertionError("--eval exited non-zero")
+    torch.cuda.synchronize()
+    ev_wall = time.perf_counter() - t0
+    expect("--eval", dict(K.LAUNCHES), math.ceil(len(utts) / sb), None)
+    with open(ev_path) as f:
+        ev_text = f.read()
+    cm1 = {ln.split()[0]: float(ln.split()[2]) for ln in ev_text.splitlines()}
+
+    # 1. --serve on a pipe: 48 WAV requests, 16 a batch
+    lines = [f"{os.path.basename(p)}\t{p}" for p in requests]
+    serve_flags = model_flags + ["--serve", "--serve_batch", str(sb)]
+    replies, wall, fwd, launches, window = _stdin_serve(K, cli, serve_mod, serve_flags, lines)
+    expect("--serve", launches, fwd, "serve")
+    stdin_score = {k: float(v) for k, v in replies}
+    first = [f"{cm1[u]:.6f}" for u in utts[:sb]]
+    equal_eval = [v for _, v in replies[:sb]] == first
+    print(f"[serve] {card}: --serve on a pipe: {len(requests)} WAV requests in {wall:.2f}s "
+          f"wall (model build included), {fwd} forwards of [{sb}, 64600] from the first "
+          f"to the last in {window:.3f}s ({len(requests) / window:.2f} utt/s); the first "
+          f"{sb} replies equal --eval --batch_size {sb}'s cm1 to 6 decimals: {equal_eval}; "
+          f"launches {launches}; --eval itself {ev_wall:.2f}s wall")
+    if (len(replies) != len(requests) or [k for k, _ in replies] != [os.path.basename(p)
+                                                                       for p in requests]
+            or fwd != len(requests) // sb or not equal_eval):
+        raise AssertionError(f"--serve replies wrong: {replies[:3]}..., {fwd} forwards")
+
+    # 2. --calibrate a,b, with a missing file among the lines
+    a, b = c["calibrate"]
+    missing = os.path.join(db, "missing.wav")
+    cal_lines = lines[:sb] + [lines[sb], f"missing\t{missing}", lines[sb + 1]]
+    cal_replies, _, fwd, launches, _ = _stdin_serve(
+        K, cli, serve_mod, serve_flags + ["--calibrate", f"{a},{b}"], cal_lines)
+    expect("--serve --calibrate", launches, fwd, "serve")
+    cal = dict((k, v) for k, v in cal_replies)
+    err_cal = max(abs(float(cal[k]) - (a * stdin_score[k] + b)) for k, _ in replies[:sb])
+    around = [os.path.basename(requests[i]) for i in (sb, sb + 1)]
+    err_around = max(abs(float(cal[k]) - (a * stdin_score[k] + b)) for k in around)
+    print(f"[serve] --calibrate {a},{b}: max |reply - (a * raw + b)| {err_cal:.3e} over the "
+          f"first {sb} (tol 2e-6: 6 printed decimals); missing file replied "
+          f"{cal['missing'][:40]!r}; the two lines around it within {err_around:.3e} "
+          f"(tol {abs(a) * MAIN_PATH_ATOL:.0e}: another batch)")
+    if (err_cal > 2e-6 or not cal["missing"].startswith("ERROR")
+            or err_around > abs(a) * MAIN_PATH_ATOL or len(cal_replies) != len(cal_lines)):
+        raise AssertionError("--serve --calibrate replies wrong")
+
+    # 3. the same utterances as FLAC, where the codec library builds
+    codec = native.codec_available()
+    if codec:
+        flac_dir = os.path.join(tmp, "flac")
+        os.makedirs(flac_dir)
+        flac = {}
+        for p in paths:
+            flac[p] = os.path.join(flac_dir, os.path.basename(p)[:-4] + ".flac")
+            native.encode_audio(flac[p], load_audio(p), 16000, "flac")
+        flac_lines = [f"{os.path.basename(p)}\t{flac[p]}" for p in requests]
+        flac_replies, _, fwd, launches, _ = _stdin_serve(K, cli, serve_mod, serve_flags,
+                                                         flac_lines)
+        expect("--serve FLAC", launches, fwd, "serve")
+        same = flac_replies == replies
+        print(f"[serve] codec library built: --serve of the same {len(requests)} requests "
+              f"as FLAC replies exactly as the WAV ones: {same}")
+        if not same:
+            raise AssertionError("FLAC replies differ from WAV replies")
+    else:
+        why = native.BUILD_ERRORS.get("scl_codec", "it built but did not load").replace(
+            "\n", " | ")
+        print(f"[serve] codec library did not build on this machine, so FLAC serving was "
+              f"not run; g++ on native_src/scl_codec.cpp said: {why}")
+
+    # 4. HTTP: make_server on 127.0.0.1:0, 16 client threads of 4 requests
+    cfg = load_config(EVAL_CONFIG)
+    model = cast_matmul_params(LinearNLL.from_config(
+        cfg.model, ssl=XLSRConfig.xlsr_300m(compute_dtype="bfloat16"), device="cuda",
+        seed=seed).eval(), torch.bfloat16)
+    server = serving.make_server(lambda block: score_step(model, block), cut=64600, port=0,
+                                 batch_size=sb, max_wait_ms=c["wait_ms"], max_queue=None,
+                                 padding_type="zero", model_tag=cfg.model.name)
+    host, port = server.server_address[:2]
+    base = f"http://{host}:{port}"
+    runner = threading.Thread(target=server.serve_forever, daemon=True)
+    runner.start()
+
+    def post(route, body, headers):
+        t0 = time.perf_counter()
+        req = urllib.request.Request(base + route, data=body, headers=headers)
+        with urllib.request.urlopen(req, timeout=300) as r:
+            out = json.loads(r.read())
+        return out, time.perf_counter() - t0
+
+    js = {"Content-Type": "application/json"}
+    try:
+        post("/score", json.dumps({"path": paths[0]}).encode(), js)  # warm-up
+        K.reset_launches()
+        b0 = server.batcher.batches
+        got, latencies, failures = {}, [], []
+        lock = threading.Lock()
+
+        def client(t):
+            try:
+                for k in range(c["per_client"]):
+                    p = requests[(t * c["per_client"] + k) % len(requests)]
+                    if t == 0 and k == c["per_client"] - 1:  # one /score_batch
+                        out, dt = post("/score_batch",
+                                       json.dumps({"paths": requests[:sb]}).encode(), js)
+                        scored = [(os.path.basename(r["path"]), r["score"])
+                                  for r in out["results"]]
+                    elif k == 0:  # an upload of the file's bytes
+                        with open(p, "rb") as f:
+                            body = f.read()
+                        out, dt = post("/score", body, {"Content-Type": "audio/wav",
+                                                        "X-Filename": os.path.basename(p)})
+                        scored = [(out["id"], out["score"])]
+                    else:
+                        out, dt = post("/score", json.dumps(
+                            {"path": p, "id": os.path.basename(p)}).encode(), js)
+                        scored = [(out["id"], out["score"])]
+                    with lock:
+                        latencies.append(dt)
+                        for name, score in scored:
+                            got.setdefault(name, []).append(score)
+            except Exception as e:  # noqa: BLE001 -- reported below
+                with lock:
+                    failures.append(repr(e))
+
+        threads = [threading.Thread(target=client, args=(t,)) for t in range(c["clients"])]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        http_wall = time.perf_counter() - t0
+        alive = any(t.is_alive() for t in threads)
+        with urllib.request.urlopen(base + "/metrics", timeout=60) as r:
+            metrics = r.read().decode()
+    finally:
+        server.shutdown()
+        server.close()
+        runner.join(timeout=60)
+    torch.cuda.synchronize()
+    batches = server.batcher.batches - b0
+    launches = dict(K.LAUNCHES)
+    if failures or alive or runner.is_alive():
+        raise AssertionError(f"HTTP clients failed: {failures[:3]}, alive {alive}")
+    expect("HTTP", launches, batches, "serve_http")
+    n_scored = sum(len(v) for v in got.values())
+    err_http = max(abs(s - stdin_score[name]) for name, v in got.items() for s in v)
+    lat = np.array(latencies) * 1e3
+    metric_batches = int(next(ln.split()[1] for ln in metrics.splitlines()
+                              if ln.startswith("scl_serve_batches_total")))
+    print(f"[serve] {card}: HTTP, {c['clients']} clients x {c['per_client']} requests "
+          f"(JSON paths, uploads, one /score_batch of {sb}): {n_scored} utts in "
+          f"{http_wall:.3f}s, {n_scored / http_wall:.2f} utt/s; request latency p50 "
+          f"{np.percentile(lat, 50):.2f} ms, p99 {np.percentile(lat, 99):.2f} ms; "
+          f"{batches} batches, {n_scored / batches:.2f} rows a batch (of {sb}); "
+          f"/metrics batches {metric_batches}; the worker issued batches for "
+          f"{server.batcher.dispatch_s:.3f}s and waited on readback for "
+          f"{server.batcher.readback_s:.3f}s (warm-up included); replies vs --serve's max |d| "
+          f"{err_http:.3e} (tol 1e-06: 6 printed decimals); launches {launches} from the "
+          f"MicroBatcher's worker thread ({layers} x {batches} batches)")
+    if err_http > 1e-6 or metric_batches != server.batcher.batches or n_scored != (
+            c["clients"] * c["per_client"] - 1 + sb):
+        raise AssertionError("HTTP replies or counters wrong")
+    del model
+    torch.cuda.empty_cache()
+
+    # 5. --eval --decode_cache twice: both score files equal the run without it
+    cache = os.path.join(tmp, "decode_cache")
+    for run in (1, 2):
+        out = os.path.join(tmp, f"eval_cache{run}.txt")
+        K.reset_launches()
+        t0 = time.perf_counter()
+        if cli.main(eval_flags + ["--decode_cache", cache, "--eval_output", out]) != 0:
+            raise AssertionError("--eval --decode_cache exited non-zero")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        expect("--eval --decode_cache", dict(K.LAUNCHES), math.ceil(len(utts) / sb), None)
+        with open(out) as f:
+            same = f.read() == ev_text
+        print(f"[serve] --eval --decode_cache run {run}: {wall:.2f}s wall ("
+              f"{'builds' if run == 1 else 'reads'} {sorted(os.listdir(cache))}); score file "
+              f"equal to the run without a cache: {same}")
+        if not same:
+            raise AssertionError("--decode_cache changed the score file")
+    print(f"[serve] phase in {time.perf_counter() - t_phase:.2f}s; launches {by_path}")
+    return by_path, {"stdin_utt_s": len(requests) / window, "http_utt_s": n_scored / http_wall,
+                     "p50_ms": float(np.percentile(lat, 50)),
+                     "p99_ms": float(np.percentile(lat, 99)),
+                     "rows_per_batch": n_scored / batches,
+                     "dispatch_s": server.batcher.dispatch_s,
+                     "readback_s": server.batcher.readback_s, "codec": codec}
+
+
 def _fwd_entry(K, A, shape, card, g, KB=None):
     """The forward kernel at ``shape`` bf16 against its plain version and
     the sdpa yardstick (pinned to its flash backend), and its bound; with
@@ -1281,8 +1587,8 @@ REMAT_POLICIES = ("attn", "attn_ffn", "dots", "full")
 def phase_remat(K, card):
     """Two train steps of the conf-3 model at [2, 11, 64000] bf16 under each
     remat policy: ms for the second, peak memory, the launches of one step
-    (the forward recomputed under every policy: 48 / 24 / 24); then one
-    step with bf16 weight-grad stacks under fp32 compute (--bf16_grads)."""
+    (the forward recomputed under every policy: 48 / 24 / 24); then two
+    steps with bf16 weight-grad stacks under fp32 compute (--bf16_grads)."""
     from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
     from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
     from scl_deepfake_audio_detection_torch.train.engine import Engine
@@ -1304,7 +1610,7 @@ def phase_remat(K, card):
                                seed=c["seed"]), cfg)
         eng.init_state()
         placed = eng.place_batch(batch)
-        n_steps = 1 if kw["compute_dtype"] == "float32" else 2
+        n_steps = 2  # the second step's peak holds AdamW's moments
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for i in range(n_steps):
@@ -1332,7 +1638,7 @@ def phase_train_cli(K, card, tmp):
     of 2 anchor groups and 1 dev step, host augmentation in TrainLoader.
     Then last.ckpt is loaded into a fresh model, which must score a batch
     exactly as the trained one; and the host's time to build one group."""
-    from scl_deepfake_audio_detection_torch import cli
+    from scl_deepfake_audio_detection_torch import cli, native
     from scl_deepfake_audio_detection_torch.data import protocols
     from scl_deepfake_audio_detection_torch.data.datasets import (
         SCLViewBatchBuilder, resources_from_config, spec_from_config)
@@ -1404,16 +1710,32 @@ def phase_train_cli(K, card, tmp):
     res = resources_from_config(cfg.data.kwargs, cfg.rawboost)
     _, files = protocols.gen_list_scl(db, "train")
     builder = SCLViewBatchBuilder(spec, db, files, res, seed=1234)
-    t1 = time.perf_counter()
-    for i in range(len(files)):
-        _, views, _ = builder.build(i, 0)
-    alone = (time.perf_counter() - t1) / len(files) * 1e3
+
+    def build_ms():
+        t1 = time.perf_counter()
+        for i in range(len(files)):
+            builder.build(i, 0)
+        return (time.perf_counter() - t1) / len(files) * 1e3
+
+    # RawBoost's LnL through the native host library (as the CLI ran it)
+    # and through numpy, in turns: native, numpy, numpy, native
+    native_on, native_available = native.available(), native.available
+    alone = {True: [], False: []}
+    try:
+        for use in (True, False, False, True):
+            native.available = native_available if use else (lambda: False)
+            alone[use].append(build_ms())
+    finally:
+        native.available = native_available
+    _, views, _ = builder.build(0, 0)
     t1 = time.perf_counter()
     n = sum(b["wav"].shape[0] for b in TrainLoader(builder, 2, num_workers=workers).epoch(0))
     loader = (time.perf_counter() - t1) / n * 1e3
     print(f"[train-cli] host, {os.cpu_count()} cores: one {views.shape[0]}-view group "
-          f"[{views.shape[0]}, {views.shape[1]}] takes {alone:.1f} ms in "
-          f"SCLViewBatchBuilder.build alone, {loader:.1f} ms per group through TrainLoader "
+          f"[{views.shape[0]}, {views.shape[1]}] takes {min(alone[True]):.1f} ms in "
+          f"SCLViewBatchBuilder.build alone with the native LnL (built: {native_on}), "
+          f"{min(alone[False]):.1f} ms with numpy's (best of 2 each, in turns), "
+          f"{loader:.1f} ms per group through TrainLoader "
           f"(2 groups a step, --num_workers {workers}): {2 * loader:.1f} ms of host work "
           f"per step against the CLI's {per_step:.1f} ms per step")
     return launches, {"db": db, "config": cfg_path, "per_step_ms": per_step,
@@ -1541,6 +1863,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         modes_launches = phase_eval_modes(K, card, tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        serve_launches, serve_stats = phase_serve(K, card, tmp)
+    torch.cuda.empty_cache()
     # the forward at bucketed scoring's longest batch, past T = 256
     modes_fwd = _fwd_entry(K, A, BUCKET_SHAPE, card, torch.Generator(device="cuda").manual_seed(6))
     eval_fwd = phase_times(K, A, card, KB)
@@ -1555,7 +1881,8 @@ def main() -> int:
     remat = phase_remat(K, card)
     times = phase_backward_times(K, A, card, KB)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f}s; launches on the "
-          f"eval main path {eval_launches}, in the eval modes {modes_launches}, on the "
+          f"eval main path {eval_launches}, in the eval modes {modes_launches}, serving "
+          f"{serve_launches}, on the "
           f"training main path {launches}, through the training CLI {cli_launches}, with "
           f"--device_aug {aug_launches}; remat per step "
           f"{ {k: v['launches'] for k, v in remat.items()} }")
@@ -1575,6 +1902,8 @@ def main() -> int:
             "launches": aug_launches[name],
             "launches_by_path": {"eval": eval_launches[name],
                                  "eval_modes": modes_launches[name],
+                                 "serve": serve_launches["serve"][name],
+                                 "serve_http": serve_launches["serve_http"][name],
                                  "train": launches[name], "train_cli": cli_launches[name],
                                  "train_cli_device_aug": aug_launches[name],
                                  **{f"remat_{k}_per_step": v["launches"][name]
@@ -1584,6 +1913,9 @@ def main() -> int:
         if name == "flash_attn_fwd":
             entry["eval"] = {"launches": eval_launches[name], **eval_fwd}
             entry["eval_modes"] = {"launches": modes_launches[name], **modes_fwd}
+            entry["serve"] = {"launches": serve_launches["serve"][name],
+                              "launches_http": serve_launches["serve_http"][name],
+                              **serve_stats}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(card)

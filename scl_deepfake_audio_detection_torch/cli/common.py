@@ -16,6 +16,20 @@ class CliError(Exception):
         self.message = message
 
 
+def parse_calibration(spec):
+    """The ``(a, b)`` of a ``--calibrate 'a,b'`` spec, None without one; a
+    usage error (exit 2) on anything but exactly two floats."""
+    if not spec:
+        return None
+    try:
+        cal = tuple(float(x) for x in spec.split(","))
+    except ValueError:
+        raise CliError(2, f"--calibrate expects 'a,b' (two floats), got {spec!r}")
+    if len(cal) != 2:
+        raise CliError(2, f"--calibrate expects 'a,b' (two floats), got {spec!r}")
+    return cal
+
+
 def _build_model(args, cfg, device):
     """The configured model at ``--ssl_preset`` on ``device``, with remat
     (the 'attn' policy) and ``--bf16_grads`` as the JAX CLI builds it,

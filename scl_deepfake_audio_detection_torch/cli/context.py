@@ -28,6 +28,8 @@ class RunContext:
     """Everything the per-mode modules share; the phases fill it in."""
 
     args: Any
+    pidx: int = 0  # this process's index of pcnt in a multi-process eval
+    pcnt: int = 1
     cfg: Any = None
     device: Any = None
     train_cfg: Any = None
@@ -106,7 +108,8 @@ def init_state(ctx: RunContext) -> None:
     from scl_deepfake_audio_detection_torch.utils.registry import DATASETS
 
     args = ctx.args
-    training = not args.eval  # the modes of later slices were refused before
+    # the modes of later slices were refused before
+    training = not (args.eval or args.serve or args.serve_http is not None)
     if training:
         ctx.engine.init_state()
     if ctx.resume_path is not None and training:

@@ -5,11 +5,14 @@ averaged) and ``--resume_eval`` (score only what an earlier run left).
 
 EvalDataset -> EvalLoader -> score_step -> the writers of
 ``train/scoring``, the flow of ``scl_deepfake_audio_detection_tpu/cli/evaluate.py``
-without its decode cache, ``--from_export`` and multi-host sharding.
+with its decode cache (``--decode_cache``) and its per-process file-list
+slices (``RunContext.pidx`` of ``pcnt``; one process until multi-host runs
+are ported), without ``--from_export``.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import time
 
@@ -34,8 +37,13 @@ def run(args, ctx: RunContext) -> int:
         _, file_eval = protocols.gen_list_eval_only(args.database_path)
     else:
         _, file_eval = protocols.gen_list_scl(args.database_path, "eval")
+    pidx, pcnt = ctx.pidx, ctx.pcnt
+    if pcnt > 1:  # this process's slice; `cat out.part*` merges them
+        file_eval = file_eval[pidx::pcnt]
     print(f"no. of eval trials {len(file_eval)}")
     out = args.eval_output or "scores.txt"
+    if pcnt > 1:
+        out = f"{out}.part{pidx}"
     resume_append = False
     if args.resume_eval:
         if args.emb:
@@ -57,6 +65,13 @@ def run(args, ctx: RunContext) -> int:
                 return 0
     ds = EvalDataset(file_eval, args.database_path, padding_type=args.padding_type,
                      use_eval_subdir=ctx.desc["eval_subdir"])
+    if args.decode_cache:
+        # the first run decodes and packs once; later runs of a sweep read
+        # memmap slices.  Each process of a multi-process run caches its own
+        # slice of the list in part{k}: one shared pcm16.bin would be raced.
+        cache_dir = (os.path.join(args.decode_cache, f"part{pidx}") if pcnt > 1
+                     else args.decode_cache)
+        ds.warm_decode_cache(cache_dir, num_workers=args.num_workers)
     loader = EvalLoader(ds, batch_size=max(args.batch_size, 1),
                         num_workers=args.num_workers, wire_dtype=args.wire_dtype)
     t0 = time.time()

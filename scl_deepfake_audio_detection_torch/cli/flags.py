@@ -17,12 +17,7 @@ from scl_deepfake_audio_detection_torch.utils.config import RawBoostConfig
 
 # dest -> (the value that leaves the flag off, the slice that ports it)
 LATER_SLICES = {
-    "calibrate": (None, "Slice E"),
-    "warm_cache": (False, "Slice C"),
-    "decode_cache": (None, "Slice C"),
     "ssl_checkpoint": (None, "Slice E"),
-    "serve": (False, "Slice E"),
-    "serve_http": (None, "Slice E"),
     "export_model": (None, "Slice E"),
     "verify_export": (None, "Slice E"),
     "from_export": (None, "Slice E"),
@@ -124,7 +119,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--serve", action="store_true", default=False,
                    help="persistent scorer: read wav paths (or 'id\\tpath') "
                         "from stdin, write 'id\\tscore' lines; one warm "
-                        "compiled program, no per-request startup cost")
+                        "model, no per-request startup cost")
     p.add_argument("--multihost", action="store_true", default=False,
                    help="TPU pod mode: jax.distributed.initialize(); train "
                         "shards loader streams per process over the global "
@@ -261,8 +256,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "log-probs)")
     p.add_argument("--serve_batch", type=int, default=1,
                    help="--serve: score up to N pending requests as ONE "
-                        "fixed-shape batch (the TPU serving lever — batch-1 "
-                        "forwards leave most of the chip idle under load); "
+                        "fixed-shape batch (a batch-1 forward leaves most "
+                        "of the card idle under load); "
                         "latency for a lone request is unchanged")
     p.add_argument("--serve_http", type=int, default=None, metavar="PORT",
                    help="HTTP scoring service on PORT (0 = ephemeral): "

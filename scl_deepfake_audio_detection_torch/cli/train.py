@@ -1,6 +1,6 @@
 """Training CLI modes: SCL view-batch training with early stopping and
-full-state checkpoints (the reference ``02_train.sh`` flow), and
-``--show_params``.
+full-state checkpoints (the reference ``02_train.sh`` flow),
+``--show_params`` and ``--warm_cache``.
 
 Counterpart of ``scl_deepfake_audio_detection_tpu/cli/train.py``.  With host
 augmentation ``SCLViewBatchBuilder`` composes each anchor group in numpy on
@@ -29,6 +29,31 @@ def run_show_params(args, ctx: RunContext) -> int:
 
     model = _build_model(args, ctx.cfg, "meta")
     print(param_table(to_jax(model, host=False)))
+    return 0
+
+
+def run_warm_cache(args, ctx: RunContext) -> int:
+    """--warm_cache: fill the offline augmentation cache of the train and
+    dev lists, then exit; no model, no device."""
+    from scl_deepfake_audio_detection_torch.data import protocols
+    from scl_deepfake_audio_detection_torch.data.cache_warmup import warm_aug_cache
+    from scl_deepfake_audio_detection_torch.data.datasets import (
+        SCLViewBatchBuilder,
+        resources_from_config,
+        spec_from_config,
+    )
+
+    cfg = ctx.cfg
+    spec = spec_from_config(cfg.data.name, cfg.data.kwargs)
+    if spec is None:
+        print("config's dataset is eval-only; nothing to cache", file=sys.stderr)
+        return 2
+    res = resources_from_config(cfg.data.kwargs, cfg.rawboost)
+    for subset in ("train", "dev"):
+        _, files = protocols.gen_list_scl(args.database_path, subset)
+        builder = SCLViewBatchBuilder(spec, args.database_path, files, res, seed=args.seed)
+        stats = warm_aug_cache(builder, num_workers=args.num_workers, verbose=True)
+        print(f"{subset}: {stats}")
     return 0
 
 

@@ -265,6 +265,9 @@ class EvalDataset:
         self.padding_type = padding_type
         self.cut = cut
         self.sample_rate = sample_rate
+        # a data.decode_cache.DecodeCache (warm_decode_cache attaches one):
+        # its utterances are read as memmap slices instead of decoded
+        self.decode_cache = None
 
     def __len__(self) -> int:
         return len(self.files)
@@ -276,7 +279,31 @@ class EvalDataset:
     def get_raw(self, idx: int) -> Tuple[np.ndarray, str]:
         """Full-length audio, neither padded nor cut (``--long_audio``)."""
         utt = self.files[idx]
+        if self.decode_cache is not None and self.decode_cache.has(utt):
+            return self.decode_cache.get(utt), utt
         return load_audio(os.path.join(self.base_dir, utt), self.sample_rate), utt
+
+    def warm_decode_cache(self, cache_dir: str, num_workers: int = 4):
+        """Build (or open) the packed decode cache of this dataset's files
+        and attach it."""
+        from scl_deepfake_audio_detection_torch.data.decode_cache import DecodeCache
+
+        cache = DecodeCache(cache_dir)
+        reusable = cache.ready and cache.sample_rate == self.sample_rate
+        if not reusable or not all(cache.has(u) for u in self.files):
+            old = cache if reusable else None
+
+            def load(u):
+                # an incremental rebuild reads the old cache's hits instead
+                # of decoding the whole list again for one new file
+                if old is not None and old.has(u):
+                    return old.get(u)
+                return load_audio(os.path.join(self.base_dir, u), self.sample_rate)
+
+            cache = DecodeCache.build(cache_dir, self.files, load,
+                                      sample_rate=self.sample_rate, num_workers=num_workers)
+        self.decode_cache = cache
+        return cache
 
 
 # reference dataset-module names -> descriptors

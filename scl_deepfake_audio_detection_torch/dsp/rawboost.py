@@ -10,14 +10,16 @@ of its dataset modules (``asvspoof_2019_augall_3.py:377-439``):
   4=1+2+3  5=1+2  6=1+3  7=2+3  8=1||2 (in parallel, renormalised)
 
 Draws come from an explicit ``np.random.Generator`` in the JAX package's
-order, so both give the same output for one seed.  LnL runs its numpy loop;
-the native FIR chain of the JAX package comes with Slice C.
+order, so both give the same output for one seed.  LnL runs the native FIR
+chain (``native.lnl_apply``) where the host library builds, as the JAX
+package does, and its numpy loop elsewhere.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from scl_deepfake_audio_detection_torch import native
 from scl_deepfake_audio_detection_torch.dsp.fir import design_notch_chain, filter_fir_centered
 from scl_deepfake_audio_detection_torch.utils.config import RawBoostConfig
 
@@ -46,6 +48,8 @@ def lnl_convolutive_noise(x: np.ndarray, cfg: RawBoostConfig, fs: int,
         chains.append(design_notch_chain(
             rng, cfg.nBands, cfg.minF, cfg.maxF, cfg.minBW, cfg.maxBW,
             cfg.minCoeff, cfg.maxCoeff, min_g, max_g, fs))
+    if native.available():  # the fused power and FIR chain loop
+        return native.lnl_apply(x.astype(np.float32), chains)
     y = np.zeros_like(x, dtype=np.float64)
     for i, b in enumerate(chains):
         y = y + filter_fir_centered(np.power(x, i + 1), b)

@@ -1,8 +1,10 @@
-"""WAV audio IO with the stdlib ``wave`` module and numpy.
+"""Audio IO.
 
+Counterpart of ``scl_deepfake_audio_detection_tpu/utils/audio_io.py``.
 Loads return mono float32 in [-1, 1] at the requested rate (librosa's
-convention, which the reference uses).  FLAC and the other compressed
-formats are not read yet.
+convention, which the reference uses), decoded by the port's native host
+libraries (``native.py``: WAV, and FLAC, MP3, Opus, ... through libav*)
+where they build, else by the stdlib ``wave`` module and numpy.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import wave
 from typing import Tuple
 
 import numpy as np
+
+from scl_deepfake_audio_detection_torch import native
 
 
 def _read_wav(path: str) -> Tuple[np.ndarray, int]:
@@ -51,10 +55,27 @@ def resample(x: np.ndarray, sr_in: int, sr_out: int) -> np.ndarray:
 
 
 def load_audio(path: str, sr: int = 16000) -> np.ndarray:
-    """Mono float32 at ``sr`` from a PCM WAV file."""
+    """Mono float32 at ``sr``.
+
+    Decode order, as the JAX package's: the native WAV reader (PCM16 and
+    float32), then the native libav* codec library (the LA19 and DF21 eval
+    sets ship .flac), then the stdlib WAV reader."""
     ext = os.path.splitext(path)[1].lower()
+    if ext == ".wav" and native.available():
+        try:
+            data, file_sr = native.read_wav(path)
+            return resample(data, file_sr, sr)
+        except ValueError:
+            pass  # another WAV subtype: the generic decoders below
+    if native.codec_available():
+        try:
+            data, file_sr = native.read_audio(path)
+            return resample(data, file_sr, sr)
+        except ValueError:
+            pass  # libav* cannot read it
     if ext != ".wav":
-        raise RuntimeError(f"cannot decode {ext!r}: only WAV is read yet: {path}")
+        raise RuntimeError(f"cannot decode {ext!r}: needs the native codec module "
+                           f"(libavformat/libavcodec): {path}")
     data, file_sr = _read_wav(path)
     return resample(data, file_sr, sr)
 

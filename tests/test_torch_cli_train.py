@@ -187,8 +187,8 @@ def test_show_params_prints_the_jax_table(mini_db, capsys):
 
 
 @pytest.mark.parametrize("argv,where", [
-    (["--calibrate", "1,0"], "Slice E"), (["--from_export", "d"], "Slice E"),
-    (["--warm_cache"], "Slice C"), (["--decode_cache", "d"], "Slice C"),
+    (["--export_model", "d"], "Slice E"), (["--from_export", "d"], "Slice E"),
+    (["--verify_export", "d"], "Slice E"), (["--export_reference_ckpt", "x"], "Slice E"),
     (["--ssl_checkpoint", "x.pt"], "Slice E"), (["--parity_check", "x"], "Slice E"),
     (["--distill_from", "t.ckpt"], "Slice H"), (["--multihost"], "Slice H"),
     (["--mesh", "1,1"], "Slice H"), (["--zero1"], "Slice H"),

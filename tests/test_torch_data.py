@@ -2,10 +2,12 @@
 
 Each module is a numpy copy of its JAX twin that keeps the order of the
 draws, so on the same seed the port's output is bit-equal to JAX's
-(``np.array_equal``) with the JAX package's native LnL switched off
-(``native.available`` patched to False; no JAX file changes).  With the
-native LnL on, the JAX side runs its C FIR chain, and the two agree within
-atol 1e-5, as ``tests/test_native.py`` holds that chain to numpy.
+(``np.array_equal``) with both packages' native LnL switched off
+(``native.available`` of each patched to False; no JAX file changes), and
+bit-equal again with both on (the same C FIR chain, built from
+byte-identical sources with the same flags).  With only the JAX package's
+native LnL on, the two agree within atol 1e-5, as ``tests/test_native.py``
+holds that chain to numpy.
 
 Covered: the dataset registry, the FIR design, every RawBoost algorithm,
 every ``dsp/augment`` function, ``multiview_pad``, every registered
@@ -20,6 +22,7 @@ import numpy as np
 import pytest
 
 import scl_deepfake_audio_detection_tpu.native as jnative
+import scl_deepfake_audio_detection_torch.native as pnative
 from scl_deepfake_audio_detection_tpu.data import augment_registry as JR
 from scl_deepfake_audio_detection_tpu.data import datasets as JD
 from scl_deepfake_audio_detection_tpu.data import loader as JL
@@ -47,6 +50,20 @@ NOT_PORTED_AUGS = {"telephone_wrapper", "telephone", "codec_wrapper", "codec"}
 @pytest.fixture
 def no_native(monkeypatch):
     monkeypatch.setattr(jnative, "available", lambda: False)
+    monkeypatch.setattr(pnative, "available", lambda: False)
+
+
+@pytest.fixture
+def both_native():
+    if not (jnative.available() and pnative.available()):
+        pytest.skip("a native host library does not build here")
+
+
+@pytest.fixture
+def jax_native_only(monkeypatch):
+    if not jnative.available():
+        pytest.skip("the JAX package's native library does not build here")
+    monkeypatch.setattr(pnative, "available", lambda: False)
 
 
 def _wav(seed, n=3000, scale=0.3):
@@ -125,14 +142,19 @@ def test_rawboost_matches_jax_bit_for_bit(no_native, algo):
 
 
 @pytest.mark.parametrize("algo", [1, 4, 5, 6, 8])
-def test_rawboost_matches_jax_native_lnl(algo):
-    if not jnative.available():
-        pytest.skip("the JAX package's native library does not build here")
+def test_rawboost_matches_jax_native_lnl(jax_native_only, algo):
     x = _wav(algo)
     np.testing.assert_allclose(
         RB.process_rawboost(x, 16000, C.RawBoostConfig(), _rng(algo), algo=algo),
         JRB.process_rawboost(x, 16000, JC.RawBoostConfig(), _rng(algo), algo=algo),
         atol=NATIVE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("algo", [1, 4, 5, 6, 8])
+def test_rawboost_with_both_native_lnl_is_bit_equal(both_native, algo):
+    x = _wav(algo)
+    _same(RB.process_rawboost(x, 16000, C.RawBoostConfig(), _rng(algo), algo=algo),
+          JRB.process_rawboost(x, 16000, JC.RawBoostConfig(), _rng(algo), algo=algo))
 
 
 AUGMENTORS = {
@@ -264,12 +286,17 @@ def test_view_batch_matches_jax_for_every_variant(no_native, scl_db, tmp_path, v
         _same(labels, jlabels)
 
 
-def test_view_batch_native_lnl_within_tolerance(scl_db, tmp_path):
-    if not jnative.available():
-        pytest.skip("the JAX package's native library does not build here")
+def test_view_batch_native_lnl_within_tolerance(jax_native_only, scl_db, tmp_path):
     b, jb = _builders(scl_db, "augall_3", tmp_path)
     (_, wav, labels), (_, jwav, jlabels) = b.build(1, 0), jb.build(1, 0)
     np.testing.assert_allclose(wav, jwav, atol=NATIVE_ATOL * 32768, rtol=1e-5)
+    _same(labels, jlabels)
+
+
+def test_view_batch_with_both_native_lnl_is_bit_equal(both_native, scl_db, tmp_path):
+    b, jb = _builders(scl_db, "augall_3", tmp_path)
+    (_, wav, labels), (_, jwav, jlabels) = b.build(1, 0), jb.build(1, 0)
+    _same(wav, jwav)
     _same(labels, jlabels)
 
 

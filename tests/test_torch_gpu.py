@@ -372,3 +372,38 @@ def test_cli_trains_the_tiny_preset_on_the_card(tmp_path):
     rec = json.loads((run_dir / "metrics.jsonl").read_text().splitlines()[0])
     assert all(np.isfinite(v) for v in rec.values() if isinstance(v, float)), rec
     assert (run_dir / "last.ckpt").exists()
+
+
+@pytest.mark.gpu
+def test_the_serving_batcher_launches_the_forward_from_its_worker_thread():
+    """``serving.MicroBatcher`` in front of ``score_step`` on the card: the
+    worker thread, the only one that touches the device, launches the
+    forward kernel once per layer per batch it counts, and every reply
+    equals the same rows scored in one call on the main thread."""
+    _need_card()
+    from scl_deepfake_audio_detection_torch import serving
+    from scl_deepfake_audio_detection_torch.models.base import cast_matmul_params
+    from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.train.engine import score_step
+
+    ssl = XLSRConfig.tiny(compute_dtype="bfloat16")
+    model = cast_matmul_params(LinearNLL(ssl=ssl, device="cuda", seed=1).eval(),
+                               torch.bfloat16)
+    rows = np.random.default_rng(3).normal(size=(4, 64600)).astype(np.float32) * 0.1
+    threads = set()
+
+    def scorer(block):
+        threads.add(threading.get_ident())
+        return score_step(model, block)
+
+    b = serving.MicroBatcher(scorer, cut=64600, batch_size=4, max_wait_ms=60e3)
+    _kernels.reset_launches()
+    try:
+        got = [h.wait() for h in [b.submit_async(r) for r in rows]]
+    finally:
+        b.close()
+    assert threads == {b._worker.ident} and b.batches == 1
+    assert _kernels.LAUNCHES["flash_attn_fwd"] == ssl.encoder_layers * b.batches
+    want = score_step(model, rows).float().cpu().numpy()
+    np.testing.assert_array_equal(np.stack(got), want)

@@ -242,7 +242,8 @@ def test_port_cli_eval_writes_the_jax_cli_rows(tmp_path):
 
 
 @pytest.mark.parametrize("argv", [["--train"], ["--export_model", "d"],
-                                  ["--eval", "--decode_cache", "c"], ["--serve"]])
+                                  ["--eval", "--from_export", "d"],
+                                  ["--serve", "--ssl_checkpoint", "x.pt"]])
 def test_port_cli_refuses_unported_modes(argv, capsys):
     from scl_deepfake_audio_detection_torch.cli import main as port_main
 
@@ -422,5 +423,9 @@ def test_audio_io_round_trips_pcm16(tmp_path):
     np.testing.assert_allclose(got, x, atol=1 / 32768)
     half = audio_io.load_audio(str(tmp_path / "a.wav"), sr=8000)
     assert half.dtype == np.float32 and abs(len(half) - 400) <= 1
-    with pytest.raises(RuntimeError, match="only WAV"):
+    # a missing .flac: the JAX package's exception type and message prefix
+    with pytest.raises(RuntimeError, match="cannot decode") as got:
         audio_io.load_audio(str(tmp_path / "a.flac"))
+    with pytest.raises(RuntimeError, match="cannot decode") as want:
+        jio.load_audio(str(tmp_path / "a.flac"))
+    assert str(got.value).split(":")[0] == str(want.value).split(":")[0] == "cannot decode '.flac'"
