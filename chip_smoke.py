@@ -76,7 +76,25 @@ Phases, each of which fails the script with a non-zero exit:
    batches and the forward launched 24 times per batch from the
    MicroBatcher's worker thread; utt/s, p50 and p99 request latency and
    rows per batch; and ``--eval --decode_cache`` twice, each score file
-   equal to the run without a cache;
+   equal to the run without a cache.  Then the scoring artifact
+   (``phase_export``) at XLS-R 300M bf16 on the same database:
+   ``--export_model`` (fp and int8, a ``torch.export`` program recorded on
+   the card, no weight in it), ``--verify_export`` (the fp artifact
+   passes), ``--eval --from_export`` with cm1 within 1e-3 of ``--eval``,
+   ``--serve --from_export`` on 48 requests, the flash forward launched
+   exactly 24 times per forward of the exported program, and the
+   artifact's utt/s beside ``score_step``'s on a batch on the card; the
+   reference checkpoint (``phase_reference_ckpt``): the seeded 300M model
+   as a ``.ckpt``, ``--export_reference_ckpt`` to a ``.pth`` whose leaves
+   are the ``.ckpt``'s (the positional conv's kernel within one fp32 ulp),
+   ``--eval`` from each with scores within 1e-4, ``--parity_check``
+   against the ``.pth``'s scores (exit 0) and a perturbed copy (exit 1);
+   and the feature encoder's ``conv_impl``s (``phase_conv_impls``): each
+   of the 7 convs under 'conv', 'gemm' and 'phase', forward and data
+   gradient ms at [16, 64600] and [22, 64000], outputs within 1e-2 of
+   'conv' relative to its largest, scores within 5e-2, ms a forward, and
+   one conf-3 step with 'conv', ``fuse_qkv``, 'gemm' and 'phase', 48 / 24
+   / 24 launches each;
 6. times: CUDA-event times of each kernel at the training shape [22, 16,
    199, 64] bf16 (the forward also at the eval shape [16, 16, 201, 64]
    and at bucketed scoring's longest batch [16, 16, 349, 64]), replayed
@@ -100,12 +118,15 @@ The JSON object with one entry per kernel comes two lines before the last
 (launches counted on the path of the training CLI with ``--device_aug``,
 with each path's counts under
 ``launches_by_path``: ``eval``, ``eval_modes``, ``serve`` (the stdin
-runs), ``serve_http``, ``train``, ``train_cli``,
+runs), ``serve_http``, ``eval_from_export``, ``serve_from_export``,
+``train``, ``train_cli``,
 ``train_cli_device_aug`` and ``remat_<policy>_per_step``;
 the forward's times at bucketed scoring's longest batch [16, 16, 349, 64]
 under ``eval_modes``; times at the training shape, ``ms`` = ``graph_ms``,
 with ``eager_ms`` and ``ms_before``; the forward's eval-shape times under
-``eval``), then the card's name and power limit, and the last line
+``eval``, the artifact's under ``export``; before it the per-conv table
+as ``[conv-json]`` and the reference checkpoint's as ``[refckpt-json]``),
+then the card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
 
@@ -724,19 +745,21 @@ def phase_eval_modes(K, card, tmp):
 SERVE = dict(batch=16, clients=16, per_client=4, calibrate=(2.0, 0.5), wait_ms=5.0)
 
 
-def _stdin_serve(K, cli, serve_mod, argv, lines):
+def _stdin_serve(K, cli, serve_mod, argv, lines, target=None):
     """``--serve`` through the port's CLI in-process, its stdin a pipe that
     holds ``lines``: (reply lines, wall s, forwards, launches, forward
-    window s).  Forwards are counted at ``cli.serve``'s ``score_step``."""
+    window s).  Forwards are counted at ``target``, an (object, attribute)
+    pair: by default ``cli.serve``'s ``score_step``."""
     import contextlib
     import io
 
     forwards = []
-    real = serve_mod.score_step
+    owner, attr = target or (serve_mod, "score_step")
+    real = getattr(owner, attr)
 
-    def spy(model, block):
+    def spy(*args):
         t0 = time.perf_counter()
-        out = real(model, block)
+        out = real(*args)
         torch.cuda.synchronize()
         forwards.append((t0, time.perf_counter()))
         return out
@@ -746,7 +769,7 @@ def _stdin_serve(K, cli, serve_mod, argv, lines):
         f.write("".join(ln + "\n" for ln in lines))
     out = io.StringIO()
     stdin = sys.stdin
-    serve_mod.score_step = spy
+    setattr(owner, attr, spy)
     K.reset_launches()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -756,7 +779,7 @@ def _stdin_serve(K, cli, serve_mod, argv, lines):
             rc = cli.main(argv)
     finally:
         sys.stdin = stdin
-        serve_mod.score_step = real
+        setattr(owner, attr, real)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = dict(K.LAUNCHES)
@@ -1010,6 +1033,403 @@ def phase_serve(K, card, tmp):
                      "rows_per_batch": n_scored / batches,
                      "dispatch_s": server.batcher.dispatch_s,
                      "readback_s": server.batcher.readback_s, "codec": codec}
+
+
+# the feature encoder's shapes: eval and serving, and a conf-3 step's 2 x 11 views
+CONV_SHAPES = ((16, 64600), (22, 64000))
+CONV_IMPLS = ("conv", "gemm", "phase")
+
+
+def _best_ms(fn, calls=2, iters=10):
+    return min(cuda_ms(fn, iters=iters, warmup=3) for _ in range(calls))
+
+
+def _grad_ms(fwd, x, params):
+    """ms of the data gradient alone (``params`` frozen) and of the data
+    and weight gradients together, for one output gradient."""
+    out = {}
+    for label, train in (("dgrad_ms", False), ("bwd_ms", True)):
+        for p in params:
+            p.requires_grad_(train)
+        xg = x.detach().requires_grad_()
+        y = fwd(xg)
+        gy = torch.randn_like(y)
+        wrt = [xg] + (list(params) if train else [])
+        out[label] = _best_ms(lambda: torch.autograd.grad(y, wrt, gy, retain_graph=True))
+        del xg, y, gy
+    for p in params:
+        p.requires_grad_(False)
+    return out
+
+
+def _conv_layer_times(X, block, x, k, s, bf16):
+    """Forward, data-gradient and data-plus-weight-gradient ms of one
+    feature-encoder conv under each impl, and each impl's output."""
+    times, outs = {}, {}
+    params = [p for p in block.conv.parameters()]
+    for impl in CONV_IMPLS:
+        fn = X.CONV_IMPLS[impl]
+
+        def fwd(x=x, fn=fn):
+            if fn is None:
+                return block.conv(x, stride=s, compute_dtype=bf16)
+            return fn(block.conv, x, k, s, bf16)
+
+        with torch.no_grad():
+            outs[impl] = fwd().float()
+            f_ms = _best_ms(fwd)
+        times[impl] = {"fwd_ms": f_ms, **_grad_ms(fwd, x, params)}
+    return times, outs
+
+
+def phase_conv_impls(K, card):
+    """The feature encoder's convs under conv_impl 'conv' (cuDNN), 'gemm'
+    (patches and one cuBLAS product) and 'phase' (k accumulated products)
+    at XLS-R 300M bf16, seeded random weights: per conv, forward, data
+    gradient and data-plus-weight gradient ms (CUDA events, best of two),
+    at [16, 64600] and [22, 64000], and the positional conv's beside them;
+    the three impls' outputs per conv and their scores at [16, 64600]
+    (within 5e-2), with ms per forward; then one conf-3 step (remat 'attn')
+    with 'conv', fuse_qkv, 'gemm' and 'phase', ms of the better of steps 2
+    and 3 and 48 / 24 / 24 launches a step."""
+    from scl_deepfake_audio_detection_torch.models import xlsr as X
+    from scl_deepfake_audio_detection_torch.models.base import cast_matmul_params
+    from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
+    from scl_deepfake_audio_detection_torch.ops.layers import gelu
+    from scl_deepfake_audio_detection_torch.train.engine import Engine, score_step
+    from scl_deepfake_audio_detection_torch.utils.config import TrainConfig, load_config
+
+    t_phase = time.perf_counter()
+    bf16, seed = torch.bfloat16, 1234
+    cfg = load_config(EVAL_CONFIG)
+    model = cast_matmul_params(LinearNLL.from_config(
+        cfg.model, ssl=X.XLSRConfig.xlsr_300m(compute_dtype="bfloat16"), device="cuda",
+        seed=seed).eval(), bf16)
+    model.requires_grad_(False)
+    ssl = model.ssl
+    g = torch.Generator(device="cuda").manual_seed(5)
+    table, pos_table = [], {}
+    for b, n in CONV_SHAPES:
+        x = (0.1 * torch.randn(b, n, generator=g, device="cuda"))[..., None].to(bf16)
+        for i, (block, (_, k, s)) in enumerate(zip(ssl.feature_extractor.convs,
+                                                   ssl.cfg.conv_layers)):
+            times, outs = _conv_layer_times(X, block, x, k, s, bf16)
+            scale = outs["conv"].abs().max().item()
+            err = {impl: (outs[impl] - outs["conv"]).abs().max().item() / scale
+                   for impl in ("gemm", "phase")}
+            row = {"shape": [b, n], "layer": i, "kernel": k, "stride": s,
+                   "in": list(x.shape), **times, "rel_err_vs_conv": err}
+            table.append(row)
+            print(f"[conv] {card}: [{b}, {n}] conv {i} (k {k}, s {s}, in {list(x.shape)}): "
+                  + "; ".join(f"{impl} fwd {times[impl]['fwd_ms']:.4f} ms, dgrad "
+                              f"{times[impl]['dgrad_ms']:.4f} ms, dgrad+wgrad "
+                              f"{times[impl]['bwd_ms']:.4f} ms" for impl in CONV_IMPLS)
+                  + f"; max |impl - conv| / max |conv|: gemm {err['gemm']:.2e}, phase "
+                    f"{err['phase']:.2e}")
+            if max(err.values()) > 1e-2:  # one bf16 rounding of the output, and the bias
+                raise AssertionError(f"conv {i}: an impl disagrees with 'conv': {err}")
+            with torch.no_grad():
+                x = gelu(block.ln(block.conv(x, stride=s, compute_dtype=bf16)).to(bf16),
+                         ssl.cfg.approx_gelu)
+            del outs
+        # the positional conv (k 128, 16 groups; no conv_impl applies to it)
+        # on this shape's frames, for where the rest of the conv time goes
+        with torch.no_grad():
+            h = ssl.proj(ssl.post_extract_ln(x), bf16).to(bf16)
+        pos = {}
+        with torch.no_grad():
+            pos["fwd_ms"] = _best_ms(lambda: ssl.pos_conv_embed(h))
+        pos.update(_grad_ms(ssl.pos_conv_embed, h, list(ssl.pos_conv.parameters())))
+        pos_table[f"{b}x{n}"] = pos
+        print(f"[conv] {card}: [{b}, {n}] positional conv (k {ssl.cfg.pos_conv_kernel}, groups "
+              f"{ssl.cfg.pos_conv_groups}, in {list(h.shape)}): fwd {pos['fwd_ms']:.4f} ms, "
+              f"dgrad {pos['dgrad_ms']:.4f} ms, dgrad+wgrad {pos['bwd_ms']:.4f} ms")
+        del h
+        torch.cuda.empty_cache()
+    totals = {f"{b}x{n}": {impl: {m: sum(r[impl][m] for r in table if r["shape"] == [b, n])
+                                  for m in ("fwd_ms", "dgrad_ms", "bwd_ms")}
+                           for impl in CONV_IMPLS}
+              for b, n in CONV_SHAPES}
+    print(f"[conv] {card}: sum over the 7 convs {json.dumps(totals)}")
+
+    wav = 0.1 * torch.randn(16, 64600, generator=g, device="cuda")
+    scores, fwd_ms = {}, {}
+    for impl in CONV_IMPLS:
+        ssl.cfg = ssl.cfg.with_(conv_impl=impl)
+        scores[impl] = score_step(model, wav).float()
+        fwd_ms[impl] = _best_ms(lambda: score_step(model, wav), iters=5)
+    ssl.cfg = ssl.cfg.with_(conv_impl="conv")
+    err = {impl: (scores[impl] - scores["conv"]).abs().max().item() for impl in ("gemm", "phase")}
+    print(f"[conv] {card}: [16, 64600] score_step, ms a forward: "
+          + ", ".join(f"{impl} {fwd_ms[impl]:.3f} ({16 / fwd_ms[impl] * 1e3:.2f} utt/s)"
+                      for impl in CONV_IMPLS)
+          + f"; scores vs 'conv': gemm {err['gemm']:.3e}, phase {err['phase']:.3e} "
+            f"(tol {MAIN_PATH_ATOL:.0e})")
+    if max(err.values()) > MAIN_PATH_ATOL or not torch.isfinite(scores["conv"]).all():
+        raise AssertionError(f"conv impls' scores disagree: {err}")
+    del model
+    torch.cuda.empty_cache()
+
+    c = CONF3
+    layers = X.XLSRConfig.xlsr_300m().encoder_layers
+    want = {"flash_attn_fwd": 2 * layers, "flash_attn_bwd_dq": layers,
+            "flash_attn_bwd_dkv": layers}
+    batch = conf3_batches(1, c["seed"])[0]
+    steps = {}
+    for label, kw in (("conv", {}), ("fuse_qkv", {"fuse_qkv": True}),
+                      ("gemm", {"conv_impl": "gemm"}), ("phase", {"conv_impl": "phase"})):
+        eng = Engine(LinearNLL(ssl=X.XLSRConfig.xlsr_300m(compute_dtype="bfloat16", remat=True,
+                                                          **kw), device="cuda", seed=c["seed"]),
+                     TrainConfig(seed=c["seed"]))
+        eng.init_state()
+        placed = eng.place_batch(batch)
+        ms, losses = [], []
+        for i in range(3):
+            K.reset_launches()
+            t0 = time.perf_counter()
+            losses.append(float(eng.train_step(placed, eng.step_generator(0, i))["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+            if dict(K.LAUNCHES) != want or not np.isfinite(losses[-1]):
+                raise AssertionError(f"step '{label}': launches {dict(K.LAUNCHES)}, "
+                                     f"loss {losses[-1]}")
+        steps[label] = {"ms": min(ms[1:]), "losses": losses}
+        print(f"[conv] {card}: conf-3 step [{c['groups']}, {c['views']}, {c['samples']}] bf16 "
+              f"remat 'attn', {label}: steps 2 and 3 {ms[1]:.2f} / {ms[2]:.2f} ms (loss read "
+              f"back), losses {', '.join(f'{v:.6g}' for v in losses)}, launches a step {want}")
+        del eng, placed
+        torch.cuda.empty_cache()
+    print(f"[conv] phase in {time.perf_counter() - t_phase:.2f}s")
+    return {"per_conv": table, "sums": totals, "pos_conv": pos_table, "forward_ms": fwd_ms,
+            "score_err": err,
+            "train_step_ms": {k: v["ms"] for k, v in steps.items()}}
+
+
+def phase_export(K, card, tmp):
+    """The scoring artifact at XLS-R 300M bf16, seeded random weights, on
+    ``phase_eval_modes``' database: ``--export_model`` (fp and int8, the
+    program recorded on the card), ``--verify_export`` (the fp artifact
+    passes at --parity_tol), ``--eval --from_export`` with cm1 within 1e-3
+    of ``--eval``, ``--serve --from_export`` on 48 requests; the flash
+    forward launched exactly 24 times per forward of the exported program
+    in both, and in-process the artifact's utt/s beside ``score_step``'s on
+    a [16, 64600] batch on the card."""
+    from scl_deepfake_audio_detection_torch import cli
+    from scl_deepfake_audio_detection_torch.cli import serve as serve_mod
+    from scl_deepfake_audio_detection_torch.export import ExportedScorer, load_scorer
+    from scl_deepfake_audio_detection_torch.models.base import cast_matmul_params
+    from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.train.engine import score_step
+    from scl_deepfake_audio_detection_torch.utils.config import load_config
+
+    t_phase = time.perf_counter()
+    seed, sb = 1234, SERVE["batch"]
+    layers = XLSRConfig.xlsr_300m().encoder_layers
+    db = os.path.join(tmp, "db")
+    utts, _ = _eval_modes_database(db)
+    model_flags = ["--config", EVAL_CONFIG, "--ssl_preset", "xlsr_300m",
+                   "--compute_dtype", "bfloat16", "--seed", str(seed), "--device", "cuda"]
+    fwd_only = {name: 0 for name in K.KERNELS}
+    by_path = {}
+
+    def expect(label, forwards):
+        want = dict(fwd_only, flash_attn_fwd=layers * forwards)
+        if dict(K.LAUNCHES) != want:
+            raise AssertionError(f"{label}: launched {dict(K.LAUNCHES)}, expected {want}")
+        by_path[label] = dict(K.LAUNCHES)
+
+    def run(label, argv):
+        K.reset_launches()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        return rc, time.perf_counter() - t0
+
+    arts = {"fp": os.path.join(tmp, "art"), "int8": os.path.join(tmp, "art8")}
+    for tag, path in arts.items():
+        quant = ["--export_quant", "int8"] if tag == "int8" else []
+        rc, wall = run(tag, model_flags + ["--export_model", path] + quant)
+        sizes = {f: os.path.getsize(os.path.join(path, f)) for f in sorted(os.listdir(path))}
+        print(f"[export] {card}: --export_model ({tag}) in {wall:.2f}s (model build included): "
+              f"{sizes} bytes, launches {dict(K.LAUNCHES)}")
+        if rc != 0 or sizes["scorer.pt2"] > 64 * 2**20:
+            raise AssertionError(f"--export_model ({tag}) exited {rc}, files {sizes}")
+    verify = {}
+    for tag, path in arts.items():
+        rc, wall = run(tag, model_flags + ["--verify_export", path])
+        verify[tag] = rc
+        print(f"[export] --verify_export ({tag}) exit {rc} in {wall:.2f}s")
+    if verify["fp"] != 0:
+        raise AssertionError("--verify_export of the fp artifact failed")
+
+    ev = {}
+    forwards = math.ceil(len(utts) / sb)
+    for tag, extra in (("model", model_flags), ("artifact", [
+            "--from_export", arts["fp"], "--device", "cuda"])):
+        out = os.path.join(tmp, f"eval_{tag}.txt")
+        rc, wall = run(tag, extra + ["--eval", "--config", EVAL_CONFIG, "--database_path", db,
+                                     "--batch_size", str(sb), "--num_workers", "4",
+                                     "--eval_output", out])
+        if rc != 0:
+            raise AssertionError(f"--eval ({tag}) exited {rc}")
+        expect(f"eval_{tag}", forwards)
+        ev[tag] = {r[0]: float(r[2]) for r in _read_rows(out)}
+        print(f"[export] --eval ({tag}) {len(utts)} utts in {wall:.2f}s wall, launches "
+              f"{dict(K.LAUNCHES)} ({layers} x {forwards} forwards)")
+    eval_err = max(abs(ev["artifact"][u] - ev["model"][u]) for u in utts)
+    print(f"[export] --eval --from_export vs --eval: max |d cm1| {eval_err:.3e} (tol 1e-3)")
+    if sorted(ev["artifact"]) != sorted(ev["model"]) or eval_err > 1e-3:
+        raise AssertionError("--eval --from_export disagrees with --eval")
+
+    paths = [os.path.join(db, u) for u in utts]
+    requests = paths + paths[:16]
+    lines = [f"{os.path.basename(p)}\t{p}" for p in requests]
+    replies, wall, fwd, launches, window = _stdin_serve(
+        K, cli, serve_mod, ["--from_export", arts["fp"], "--device", "cuda", "--config",
+                            EVAL_CONFIG, "--serve", "--serve_batch", str(sb)], lines,
+        target=(ExportedScorer, "score_tensor"))
+    expect("serve_artifact", fwd)
+    serve_err = max(abs(float(v) - ev["model"][k]) for k, v in replies)
+    print(f"[export] {card}: --serve --from_export: {len(requests)} requests, {fwd} forwards "
+          f"of [{sb}, 64600] in {window:.3f}s ({len(requests) / window:.2f} utt/s), "
+          f"{wall:.2f}s wall; launches {launches}; replies vs --eval's cm1 max |d| "
+          f"{serve_err:.3e} (tol 1e-3)")
+    if (len(replies) != len(requests) or fwd != len(requests) // sb
+            or serve_err > 1e-3):
+        raise AssertionError("--serve --from_export replies wrong")
+
+    # in-process: one [16, 64600] batch on the card through the artifact
+    # and through score_step on the same weights
+    cfg = load_config(EVAL_CONFIG)
+    model = cast_matmul_params(LinearNLL.from_config(
+        cfg.model, ssl=XLSRConfig.xlsr_300m(compute_dtype="bfloat16"), device="cuda",
+        seed=seed).eval(), torch.bfloat16)
+    scorers = {tag: load_scorer(path, device="cuda") for tag, path in arts.items()}
+    wav = 0.1 * torch.randn(sb, 64600, generator=torch.Generator(device="cuda").manual_seed(9),
+                            device="cuda")
+    K.reset_launches()
+    got = scorers["fp"].score_tensor(wav).float()
+    torch.cuda.synchronize()
+    expect("artifact_forward", 1)
+    want = score_step(model, wav).float()
+    q = scorers["int8"].score_tensor(wav).float()
+    ms = {}
+    for turn in ("model", "artifact", "artifact", "model"):
+        fn = ((lambda: score_step(model, wav)) if turn == "model"
+              else (lambda: scorers["fp"].score_tensor(wav)))
+        ms[turn] = min(ms.get(turn, float("inf")), _best_ms(fn, calls=1, iters=10))
+    in_err = (got - want).abs().max().item()
+    q_err = (q - want).abs().max().item()
+    stats = {"artifact_utt_s": sb / ms["artifact"] * 1e3, "score_step_utt_s": sb / ms["model"] * 1e3,
+             "artifact_ms": ms["artifact"], "score_step_ms": ms["model"],
+             "artifact_vs_score_step": in_err, "int8_vs_score_step": q_err,
+             "verify_int8_rc": verify["int8"], "eval_err": eval_err, "serve_err": serve_err}
+    print(f"[export] {card}: [{sb}, 64600] on the card: artifact {ms['artifact']:.3f} ms a "
+          f"forward ({stats['artifact_utt_s']:.2f} utt/s), score_step {ms['model']:.3f} ms "
+          f"({stats['score_step_utt_s']:.2f} utt/s), in turns; artifact vs score_step max |d| "
+          f"{in_err:.3e}, int8 artifact {q_err:.3e}; {layers} launches per artifact forward")
+    if in_err > 1e-3:
+        raise AssertionError("the artifact disagrees with score_step on the card")
+    del model, scorers
+    torch.cuda.empty_cache()
+    print(f"[export] phase in {time.perf_counter() - t_phase:.2f}s")
+    return by_path, stats
+
+
+def phase_reference_ckpt(K, card, tmp):
+    """The reference ``epoch_N.pth`` surface at XLS-R 300M: the seeded
+    model as a ``.ckpt``; ``--export_reference_ckpt`` of it; ``--eval``
+    from the ``.pth``, from the ``.ckpt`` (every leaf equal but the
+    positional conv's kernel, which the weight-norm split and contraction
+    may move by one fp32 ulp; scores within 1e-4) and from a ``.ckpt`` of
+    the ``.pth``'s own leaves (scores identical to the ``.pth``'s: the load
+    is exact); ``--parity_check`` against
+    the ``.pth``'s score file (PASS, exit 0), then against a copy with one
+    row moved by 0.5 (FAIL, exit 1)."""
+    from scl_deepfake_audio_detection_torch import cli
+    from scl_deepfake_audio_detection_torch.models import convert
+    from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
+    from scl_deepfake_audio_detection_torch.models.params import to_jax
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.train import checkpoint as ckpt
+    from scl_deepfake_audio_detection_torch.utils.config import load_config
+    from scl_deepfake_audio_detection_torch.utils.tree import flatten
+
+    t_phase = time.perf_counter()
+    seed, sb = 1234, SERVE["batch"]
+    layers = XLSRConfig.xlsr_300m().encoder_layers
+    db = os.path.join(tmp, "db")
+    utts, _ = _eval_modes_database(db)
+    cfg = load_config(EVAL_CONFIG)
+    model = LinearNLL.from_config(cfg.model, ssl=XLSRConfig.xlsr_300m(), device="cuda",
+                                  seed=seed)
+    tree = to_jax(model)
+    del model
+    own = os.path.join(tmp, "model.ckpt")
+    pth = os.path.join(tmp, "epoch_0.pth")
+    ckpt.save(own, {"params": tree})
+    flags = ["--config", EVAL_CONFIG, "--ssl_preset", "xlsr_300m", "--compute_dtype",
+             "bfloat16", "--device", "cuda", "--database_path", db, "--batch_size", str(sb),
+             "--num_workers", "4"]
+    t0 = time.perf_counter()
+    if cli.main(flags + ["--model_path", own, "--export_reference_ckpt", pth]) != 0:
+        raise AssertionError("--export_reference_ckpt exited non-zero")
+    print(f"[refckpt] --export_reference_ckpt of a 300M .ckpt ({os.path.getsize(own)} bytes) "
+          f"-> {os.path.getsize(pth)} bytes in {time.perf_counter() - t0:.2f}s")
+    back, _ = convert.from_reference_model_checkpoint(
+        ckpt.load_reference_head_checkpoint(pth), like=XLSRConfig.xlsr_300m())
+    a, b = flatten(tree), flatten(back)
+    moved = {k: int((a[k] != b[k]).sum()) for k in a if not np.array_equal(a[k], b[k])}
+    ulps = max((int(np.abs(a[k].view(np.int32).astype(np.int64)
+                           - b[k].view(np.int32).astype(np.int64)).max()) for k in moved),
+               default=0)
+    print(f"[refckpt] leaves of the .pth vs the .ckpt: {len(a)} leaves, those that differ "
+          f"{moved} (elements), by at most {ulps} fp32 ulp")
+    if sorted(a) != sorted(b) or set(moved) - {"ssl//pos_conv//w"} or ulps > 1:
+        raise AssertionError("the reference .pth does not give the .ckpt's weights back")
+    own_of_pth = os.path.join(tmp, "pth_leaves.ckpt")
+    ckpt.save(own_of_pth, {"params": back})
+    del tree, back, a, b
+
+    rows = {}
+    for tag, path in (("ckpt", own), ("pth", pth), ("pth_leaves", own_of_pth)):
+        out = os.path.join(tmp, f"{tag}.txt")
+        K.reset_launches()
+        t0 = time.perf_counter()
+        if cli.main(flags + ["--eval", "--model_path", path, "--eval_output", out]) != 0:
+            raise AssertionError(f"--eval --model_path {tag} exited non-zero")
+        torch.cuda.synchronize()
+        if K.LAUNCHES["flash_attn_fwd"] != layers * math.ceil(len(utts) / sb):
+            raise AssertionError(f"--eval {tag}: launches {dict(K.LAUNCHES)}")
+        rows[tag] = {r[0]: (float(r[1]), float(r[2])) for r in _read_rows(out)}
+        print(f"[refckpt] --eval --model_path {os.path.basename(path)}: {len(rows[tag])} utts "
+              f"in {time.perf_counter() - t0:.2f}s")
+    d = max(abs(x - y) for u in utts for x, y in zip(rows["pth"][u], rows["ckpt"][u]))
+    same = rows["pth"] == rows["ckpt"]
+    exact = rows["pth"] == rows["pth_leaves"]
+    print(f"[refckpt] scores from the .pth vs the .ckpt: identical {same}, max |d| {d:.3e} "
+          f"(tol 1e-4); vs a .ckpt of the .pth's own leaves: identical {exact}")
+    if d > 1e-4 or not exact:
+        raise AssertionError("the reference .pth scores differently")
+
+    scores = os.path.join(tmp, "pth.txt")
+    check = flags + ["--model_path", pth, "--parity_tol", "1e-4", "--parity_check"]
+    rc_pass = cli.main(check + [scores])
+    lines = open(scores).read().strip().splitlines()
+    parts = lines[2].split()
+    parts[2] = str(float(parts[2]) + 0.5)
+    bad = os.path.join(tmp, "bad.txt")
+    with open(bad, "w") as f:
+        f.write("\n".join(lines[:2] + [" ".join(parts)] + lines[3:]) + "\n")
+    rc_fail = cli.main(check + [bad])
+    print(f"[refckpt] --parity_check against the .pth's scores: exit {rc_pass}; against a "
+          f"copy with {parts[0]} moved by 0.5: exit {rc_fail}")
+    if (rc_pass, rc_fail) != (0, 1):
+        raise AssertionError("--parity_check did not pass, then fail")
+    print(f"[refckpt] phase in {time.perf_counter() - t_phase:.2f}s")
+    return {"scores_identical": same, "max_abs": d, "pth_leaves_identical": exact,
+            "pos_conv_elements_moved": moved,
+            "parity_rc": [rc_pass, rc_fail]}
 
 
 def _fwd_entry(K, A, shape, card, g, KB=None):
@@ -1867,6 +2287,14 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         serve_launches, serve_stats = phase_serve(K, card, tmp)
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        export_launches, export_stats = phase_export(K, card, tmp)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        refckpt = phase_reference_ckpt(K, card, tmp)
+    torch.cuda.empty_cache()
+    conv = phase_conv_impls(K, card)
+    torch.cuda.empty_cache()
     # the forward at bucketed scoring's longest batch, past T = 256
     modes_fwd = _fwd_entry(K, A, BUCKET_SHAPE, card, torch.Generator(device="cuda").manual_seed(6))
     eval_fwd = phase_times(K, A, card, KB)
@@ -1882,7 +2310,7 @@ def main() -> int:
     times = phase_backward_times(K, A, card, KB)
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f}s; launches on the "
           f"eval main path {eval_launches}, in the eval modes {modes_launches}, serving "
-          f"{serve_launches}, on the "
+          f"{serve_launches}, from the exported scorer {export_launches}, on the "
           f"training main path {launches}, through the training CLI {cli_launches}, with "
           f"--device_aug {aug_launches}; remat per step "
           f"{ {k: v['launches'] for k, v in remat.items()} }")
@@ -1904,6 +2332,8 @@ def main() -> int:
                                  "eval_modes": modes_launches[name],
                                  "serve": serve_launches["serve"][name],
                                  "serve_http": serve_launches["serve_http"][name],
+                                 "eval_from_export": export_launches["eval_artifact"][name],
+                                 "serve_from_export": export_launches["serve_artifact"][name],
                                  "train": launches[name], "train_cli": cli_launches[name],
                                  "train_cli_device_aug": aug_launches[name],
                                  **{f"remat_{k}_per_step": v["launches"][name]
@@ -1916,7 +2346,14 @@ def main() -> int:
             entry["serve"] = {"launches": serve_launches["serve"][name],
                               "launches_http": serve_launches["serve_http"][name],
                               **serve_stats}
+            entry["export"] = {"launches_eval": export_launches["eval_artifact"][name],
+                               "launches_serve": export_launches["serve_artifact"][name],
+                               "launches_per_forward":
+                                   export_launches["artifact_forward"][name],
+                               **export_stats}
         kernels.append(entry)
+    print("[conv-json] " + json.dumps({"card": card, **conv}))
+    print("[refckpt-json] " + json.dumps(refckpt))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -5,18 +5,22 @@ flags (``cli/flags.py``) plus ``--device`` (default ``cuda``).  It averages
 checkpoints (``--average_ckpts``), analyses score files (``--analyze``,
 ``--compare``, ``--fuse``, ``--fit_calibration``), prints the parameter
 table (``--show_params``), fills the offline augmentation cache
-(``--warm_cache``), serves scores (``--serve`` on stdin, ``--serve_http``),
-scores an eval list (``--eval``, with ``--predict``, ``--emb``,
-``--long_audio``, ``--resume_eval``, ``--decode_cache``) or trains (no mode
-flag; ``--device_aug`` composes the views on the device), in the fixed
-order of the JAX CLI's dispatch.  The modes that build no model come
-first: they never touch the card.  Every mode and option of a later slice
-exits 2 with "not ported yet", before a model is built or the card is
-touched.
+(``--warm_cache``), writes a reference ``.pth`` (``--export_reference_ckpt``),
+checks scores against a reference score file (``--parity_check``), exports
+and verifies a scoring artifact (``--export_model``, ``--verify_export``),
+serves scores (``--serve`` on stdin, ``--serve_http``), scores an eval list
+(``--eval``, with ``--predict``, ``--emb``, ``--long_audio``,
+``--resume_eval``, ``--decode_cache``; both also ``--from_export``) or
+trains (no mode flag; ``--device_aug`` composes the views on the device),
+in the fixed order of the JAX CLI's dispatch.  The modes that build no
+model come first: they never touch the card.  Every mode and option of a
+later slice exits 2 with "not ported yet", before a model is built or the
+card is touched.
 
   ``cli.analyze``   checkpoint averaging and score analysis (no model, no device)
-  ``cli.context``   the shared runtime: config, device, model, engine
+  ``cli.context``   the shared runtime: config, device, model or artifact, engine
   ``cli.train``     training, --show_params and --warm_cache
+  ``cli.export``    artifacts, reference checkpoints and the parity check
   ``cli.serve``     the stdin and HTTP scoring services
   ``cli.evaluate``  eval-list scoring
 """
@@ -75,7 +79,18 @@ def _dispatch(args, unknown) -> int:
     if args.warm_cache:
         return train_mode.run_warm_cache(args, ctx)
     context.load_model_state(ctx)
+    from scl_deepfake_audio_detection_torch.cli import export as export_mode
+
+    # reverse migration writes the loaded parameters before any optimizer
+    if args.export_reference_ckpt:
+        return export_mode.run_export_reference_ckpt(args, ctx)
     context.init_state(ctx)
+    if args.parity_check:
+        return export_mode.run_parity_check(args, ctx)
+    if args.verify_export:
+        return export_mode.run_verify_export(args, ctx)
+    if args.export_model:
+        return export_mode.run_export_model(args, ctx)
     if serving:
         from scl_deepfake_audio_detection_torch.cli import serve
 

@@ -2,6 +2,9 @@
 
 from __future__ import annotations
 
+import importlib.util
+import os
+
 from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
 from scl_deepfake_audio_detection_torch.utils.registry import MODELS
 
@@ -42,3 +45,21 @@ def _build_model(args, cfg, device):
     ssl = getattr(XLSRConfig, args.ssl_preset)(compute_dtype=args.compute_dtype, remat=True,
                                                grad_stack_dtype=gsd)
     return cls.from_config(cfg.model, ssl=ssl, device=device, seed=args.seed)
+
+
+def _load_ssl_checkpoint(args, model) -> None:
+    """``--ssl_checkpoint``: the SSL frontend's weights from a fairseq
+    ``.pt`` or a HuggingFace model directory, over the seeded init."""
+    from scl_deepfake_audio_detection_torch.models import convert
+    from scl_deepfake_audio_detection_torch.models.params import load_jax_params
+
+    if os.path.isdir(args.ssl_checkpoint):
+        if importlib.util.find_spec("transformers") is None:
+            raise CliError(2, f"--ssl_checkpoint {args.ssl_checkpoint}: a HuggingFace "
+                              "model directory needs the transformers package, which is "
+                              "not installed")
+        ssl_params, _ = convert.load_hf_pretrained(args.ssl_checkpoint)
+    else:
+        ssl_params, _ = convert.load_fairseq_checkpoint(args.ssl_checkpoint)
+    load_jax_params(model.ssl, ssl_params)
+    print(f"loaded pretrained SSL from {args.ssl_checkpoint}")

@@ -6,9 +6,11 @@ torch objects.  Three phases, in the order the modes need them, so that
 mode makes optimizer state:
 
 1. ``build_runtime``: the config, with the RawBoost knobs from the flags.
-2. ``load_model_state``: the device, the ``TrainConfig``, the model (seeded
-   init, or the parameters of a JAX-format ``--model_path`` checkpoint) and
-   its ``Engine``.
+2. ``load_model_state``: the device, the ``TrainConfig``, and either an
+   export artifact's scorer (``--from_export``) or the model (seeded init,
+   ``--ssl_checkpoint``'s SSL weights over it, or the parameters of
+   ``--model_path``: a checkpoint of either package or a reference
+   ``epoch_N.pth``) and its ``Engine``.
 3. ``init_state``: the optimizer (training only) and the resume of a full
    train state that ``--model_path`` names (a ``last.ckpt`` of either
    package).
@@ -17,9 +19,14 @@ mode makes optimizer state:
 from __future__ import annotations
 
 import dataclasses
+import sys
 from typing import Any, Optional
 
-from scl_deepfake_audio_detection_torch.cli.common import CliError, _build_model
+from scl_deepfake_audio_detection_torch.cli.common import (
+    CliError,
+    _build_model,
+    _load_ssl_checkpoint,
+)
 from scl_deepfake_audio_detection_torch.cli.flags import _rawboost_from_args
 
 
@@ -33,9 +40,11 @@ class RunContext:
     cfg: Any = None
     device: Any = None
     train_cfg: Any = None
+    scorer: Any = None  # --from_export's artifact (in place of model and engine)
     model: Any = None
     engine: Any = None
     desc: Optional[dict] = None  # dataset descriptor (registry)
+    ref_extras: Any = None  # a reference .pth's unmapped tensors, for the way back
     resume_path: Optional[str] = None  # checkpoint path iff a full train state
     resume_epoch: Optional[int] = None
     resume_extra: dict = dataclasses.field(default_factory=dict)
@@ -87,13 +96,25 @@ def load_model_state(ctx: RunContext) -> None:
         ckpt_every=args.ckpt_every,
         async_ckpt=not args.sync_ckpt,
     )
-    if args.model_path and not args.model_path.endswith(".ckpt"):
-        raise CliError(2, f"not ported yet: --model_path {args.model_path} "
-                          "(the port reads JAX-format .ckpt files; reference "
-                          ".pth checkpoints come with Slice E)")
+    if args.from_export:
+        _check_from_export(args)
+        from scl_deepfake_audio_detection_torch.export import load_scorer
+
+        ctx.scorer = load_scorer(args.from_export, device=ctx.device)
+        meta = ctx.scorer.meta
+        print(f"loaded export {args.from_export}: {meta['model_tag']}, cut "
+              f"{ctx.scorer.cut}, platforms {meta['platforms']}, "
+              f"{meta['param_bytes'] / 1e6:.1f} MB weights",
+              file=sys.stderr)  # stderr: --serve replies own stdout
+        return
     ctx.model = _build_model(args, ctx.cfg, ctx.device)
     ctx.engine = Engine(ctx.model, ctx.train_cfg)
-    if args.model_path:
+    if not args.model_path:
+        if args.ssl_checkpoint:
+            _load_ssl_checkpoint(args, ctx.model)
+    elif args.model_path.endswith(".pth"):
+        _load_reference_pth(ctx)
+    else:
         tree, extra = ckpt.load(args.model_path)
         load_jax_params(ctx.model, tree["params"] if "params" in tree else tree)
         if isinstance(tree, dict) and "opt_state_leaves" in tree:
@@ -103,14 +124,60 @@ def load_model_state(ctx: RunContext) -> None:
         print(f"loaded checkpoint {args.model_path} (extra={extra})")
 
 
+def _check_from_export(args) -> None:
+    """The mode combinations an artifact can serve, as the JAX CLI checks them."""
+    if not (args.serve or args.serve_http is not None or args.eval):
+        raise CliError(2, "--from_export works with --serve or --eval "
+                          "(--eval --predict for the prediction writer)")
+    if args.emb:
+        raise CliError(2, "--emb needs the model (export artifacts carry the score "
+                          "columns only); run --emb with --model_path instead")
+    if args.model_path:
+        raise CliError(2, "--from_export already contains the weights; drop --model_path")
+    if args.export_model or args.parity_check or args.verify_export:
+        raise CliError(2, "--export_model/--parity_check/--verify_export need the model "
+                          "itself, not an artifact; run them with --model_path/--config")
+    if args.export_reference_ckpt:
+        raise CliError(2, "--export_reference_ckpt cannot reverse-migrate an export "
+                          "artifact (it carries an exported program and flat weights, no "
+                          "parameter tree); export from the original checkpoint with "
+                          "--model_path instead")
+
+
+def _load_reference_pth(ctx: RunContext) -> None:
+    """``--model_path epoch_N.pth``: a reference ``wav2vec2_linear_nll``
+    state dict (embedded fairseq SSL and head) into the model, its unmapped
+    tensors kept for ``--export_reference_ckpt``."""
+    from scl_deepfake_audio_detection_torch.models import convert
+    from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
+    from scl_deepfake_audio_detection_torch.models.params import load_jax_params
+    from scl_deepfake_audio_detection_torch.train import checkpoint as ckpt
+
+    args, model = ctx.args, ctx.model
+    if not isinstance(model, LinearNLL):
+        raise CliError(2, "reference .pth loading is implemented for the "
+                          "wav2vec2_linear_nll model (the one behind every published "
+                          "checkpoint); use --config conf-N-linear")
+    sd = ckpt.load_reference_head_checkpoint(args.model_path)
+    params, ssl_cfg, ctx.ref_extras = convert.from_reference_model_checkpoint(
+        sd, like=model.ssl.cfg, return_extras=True)
+    if ssl_cfg.encoder_dim != model.ssl.cfg.encoder_dim:
+        print(f"warning: checkpoint SSL dim {ssl_cfg.encoder_dim} != model config "
+              f"{model.ssl.cfg.encoder_dim}", file=sys.stderr)
+    load_jax_params(model, params)
+    print(f"loaded reference checkpoint {args.model_path} "
+          f"({ssl_cfg.encoder_layers}-layer SSL)")
+
+
 def init_state(ctx: RunContext) -> None:
     from scl_deepfake_audio_detection_torch.train import checkpoint as ckpt
     from scl_deepfake_audio_detection_torch.utils.registry import DATASETS
 
     args = ctx.args
-    # the modes of later slices were refused before
-    training = not (args.eval or args.serve or args.serve_http is not None)
-    if training:
+    # forward-only modes make no optimizer state
+    training = not (args.eval or args.serve or args.serve_http is not None
+                    or args.parity_check or args.export_model or args.verify_export)
+    if training and ctx.scorer is None:
         ctx.engine.init_state()
     if ctx.resume_path is not None and training:
         _, ctx.resume_best, _ = ckpt.load_train_state(

@@ -5,9 +5,10 @@ averaged) and ``--resume_eval`` (score only what an earlier run left).
 
 EvalDataset -> EvalLoader -> score_step -> the writers of
 ``train/scoring``, the flow of ``scl_deepfake_audio_detection_tpu/cli/evaluate.py``
-with its decode cache (``--decode_cache``) and its per-process file-list
+with its decode cache (``--decode_cache``), its per-process file-list
 slices (``RunContext.pidx`` of ``pcnt``; one process until multi-host runs
-are ported), without ``--from_export``.
+are ported) and ``--from_export``, where the artifact's scorer replaces the
+model (fp32 input: ``--wire_dtype`` is ignored).
 """
 
 from __future__ import annotations
@@ -30,9 +31,16 @@ from scl_deepfake_audio_detection_torch.utils.device import torch_dtype
 
 
 def run(args, ctx: RunContext) -> int:
-    # scoring needs no fp32 master weights: the matmul weights go to the
-    # compute dtype once
-    model = cast_matmul_params(ctx.model.eval(), torch_dtype(args.compute_dtype))
+    scorer = ctx.scorer
+    if scorer is None:
+        # scoring needs no fp32 master weights: the matmul weights go to the
+        # compute dtype once
+        model = cast_matmul_params(ctx.model.eval(), torch_dtype(args.compute_dtype))
+
+        def score_fn(wav):
+            return score_step(model, wav)
+    else:
+        score_fn = scorer.score_tensor
     if ctx.desc["variant"] is None:
         _, file_eval = protocols.gen_list_eval_only(args.database_path)
     else:
@@ -72,8 +80,14 @@ def run(args, ctx: RunContext) -> int:
         cache_dir = (os.path.join(args.decode_cache, f"part{pidx}") if pcnt > 1
                      else args.decode_cache)
         ds.warm_decode_cache(cache_dir, num_workers=args.num_workers)
+    wire_dtype = args.wire_dtype
+    if scorer is not None and wire_dtype != "float32":
+        # the exported program takes fp32; the PCM16 wire is score_step's
+        print(f"--from_export scores float32 input; ignoring --wire_dtype {wire_dtype}",
+              file=sys.stderr)
+        wire_dtype = "float32"
     loader = EvalLoader(ds, batch_size=max(args.batch_size, 1),
-                        num_workers=args.num_workers, wire_dtype=args.wire_dtype)
+                        num_workers=args.num_workers, wire_dtype=wire_dtype)
     t0 = time.time()
     total = len(file_eval)
     last = {"n": 0, "t": t0}
@@ -84,9 +98,6 @@ def run(args, ctx: RunContext) -> int:
             rate = (n - last["n"]) / max(now - last["t"], 1e-9)
             print(f"  scored {n}/{total} ({rate:.1f} utt/s)", file=sys.stderr)
             last["n"], last["t"] = n, now
-
-    def score_fn(wav):
-        return score_step(model, wav)
 
     if args.long_audio and not (args.emb or args.predict):
         # one utterance at a time: each has its own number of crops, which

@@ -17,12 +17,6 @@ from scl_deepfake_audio_detection_torch.utils.config import RawBoostConfig
 
 # dest -> (the value that leaves the flag off, the slice that ports it)
 LATER_SLICES = {
-    "ssl_checkpoint": (None, "Slice E"),
-    "export_model": (None, "Slice E"),
-    "verify_export": (None, "Slice E"),
-    "from_export": (None, "Slice E"),
-    "export_reference_ckpt": (None, "Slice E"),
-    "parity_check": (None, "Slice E"),
     "distill_from": (None, "Slice H"),
     "multihost": (False, "Slice H"),
     "mesh": (None, "Slice H"),
@@ -34,6 +28,11 @@ _PORT_HELP = {
     "profile_dir": "write a torch.profiler trace of the first epoch here",
     "device_aug": "compose the view batches on the device (RawBoost, noise and "
                   "reverb over the whole batch); the host only decodes",
+    "export_model": "export the scoring function as a standalone artifact (a "
+                    "torch.export program with a symbolic batch that runs on the "
+                    "CPU and on the card, the weights as arguments) and exit; "
+                    "deploy it with --from_export: no model code is needed on the "
+                    "serving host",
 }
 
 

@@ -11,7 +11,10 @@ layers run as a Python loop; each attention core is the hand-written
 Hopper flash forward on the card, with the hand-written flash backward
 (``ops/attention.self_attention``).  Matmuls run in ``compute_dtype`` with
 fp32 accumulation; layer norm and softmax stay fp32; the residual stream
-stays in the compute dtype.
+stays in the compute dtype.  The feature encoder's convs run through cuDNN
+(``conv_impl='conv'``, the default) or as products, through cuBLAS
+('gemm': patches and one product; 'phase': k accumulated products);
+``fuse_qkv`` makes q, k and v one [D, 3D] product over the same parameters.
 
 Training: the dropouts sit where the JAX package applies them (their rates
 are 0.0 in every preset); ``remat`` recomputes each encoder layer in the
@@ -25,6 +28,7 @@ from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -88,10 +92,10 @@ class XLSRConfig:
     activation_dropout: float = 0.0
     compute_dtype: str = "float32"
     attention_impl: str = "auto"  # 'auto' | 'flash' | 'reference'
-    conv_impl: str = "conv"  # only 'conv' is ported
+    conv_impl: str = "conv"  # 'conv' | 'gemm' | 'phase' (``CONV_IMPLS``)
     scan_unroll: int = 1
     gelu_impl: str = "auto"  # 'auto' (tanh under bf16, erf otherwise) | 'exact' | 'tanh'
-    fuse_qkv: bool = False  # not ported
+    fuse_qkv: bool = False  # one [D, 3D] product for q, k and v
     remat: bool = False
     remat_policy: str = "attn"
     remat_tail_full: int = 0
@@ -167,6 +171,61 @@ class XLSRConfig:
         return t
 
 
+def _strided_conv_gemm(conv: Conv1d, x: torch.Tensor, kernel: int, stride: int,
+                       cdtype: torch.dtype) -> torch.Tensor:
+    """VALID strided conv1d as patches and one product: [B, T, Cin] ->
+    patches [B, T_out, K*Cin] -> @ W [K*Cin, Cout], fp32 out, bias in fp32.
+
+    The patches come from ceil(k/s) shifted non-overlapping views, each a
+    reshape (no gather); for stride == kernel the whole of it is one
+    reshape.  Rows read only up to index T - 1; the tail is zero-padded so
+    that every shifted view reshapes."""
+    b, t, cin = x.shape
+    t_out = (t - kernel) // stride + 1
+    x = x.to(cdtype)
+    if stride == kernel:
+        patches = x[:, : t_out * stride].reshape(b, t_out, kernel * cin)
+    else:
+        offs = list(range(0, kernel, stride))
+        need = offs[-1] + t_out * stride
+        if need > t:
+            x = F.pad(x, (0, 0, 0, need - t))
+        chunks = []
+        for off in offs:
+            width = min(stride, kernel - off)
+            seg = x[:, off: off + t_out * stride].reshape(b, t_out, stride, cin)[:, :, :width]
+            chunks.append(seg.reshape(b, t_out, width * cin))
+        patches = torch.cat(chunks, dim=-1)
+    # [Cout, Cin, K] -> [Cout, K*Cin], tap-major as the patch rows
+    w = conv.weight.permute(0, 2, 1).reshape(conv.weight.shape[0], kernel * cin)
+    return linear(patches, w, conv.bias, cdtype)
+
+
+def _strided_conv_phase(conv: Conv1d, x: torch.Tensor, kernel: int, stride: int,
+                        cdtype: torch.dtype) -> torch.Tensor:
+    """VALID strided conv1d as k accumulated products: y[t] = sum_j x[t*s + j]
+    @ W[j].  Tap j is a contiguous window of the phase view x[j % s :: s],
+    so each is a [B*T_out, Cin] x [Cin, Cout] product; the taps sum in fp32
+    in order, then the bias.  A one-channel input (the first layer) goes to
+    the 'gemm' impl instead, as in the JAX package."""
+    b, t, cin = x.shape
+    t_out = (t - kernel) // stride + 1
+    if cin == 1:
+        return _strided_conv_gemm(conv, x, kernel, stride, cdtype)
+    x = x.to(cdtype)
+    phases = [x[:, r::stride] for r in range(stride)]
+    y = None
+    for j in range(kernel):
+        seg = phases[j % stride][:, j // stride: j // stride + t_out]
+        term = linear(seg, conv.weight[:, :, j], None, cdtype)
+        y = term if y is None else y + term
+    return y if conv.bias is None else y + conv.bias.float()
+
+
+# the feature encoder's conv: None is the conv itself (``Conv1d``)
+CONV_IMPLS = {"conv": None, "gemm": _strided_conv_gemm, "phase": _strided_conv_phase}
+
+
 class ConvBlock(nn.Module):
     def __init__(self, in_dim: int, dim: int, kernel: int, cfg: XLSRConfig):
         super().__init__()
@@ -231,12 +290,26 @@ class EncoderLayer(nn.Module):
         self.fc1 = Linear(d, f)
         self.fc2 = Linear(f, d)
 
+    def _weight(self, lin: Linear) -> torch.Tensor:
+        gsd = self.cfg.grad_stack_dtype
+        return lin.weight if gsd is None else lin.weight.to(torch_dtype(gsd))
+
     def _linear(self, lin: Linear, x: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
-        w = lin.weight
-        if cfg.grad_stack_dtype is not None:
-            w = w.to(torch_dtype(cfg.grad_stack_dtype))
-        return linear(x, w, lin.bias, torch_dtype(cfg.compute_dtype), cfg.use_fast_bwd)
+        return linear(x, self._weight(lin), lin.bias, torch_dtype(cfg.compute_dtype),
+                      cfg.use_fast_bwd)
+
+    def _qkv(self, y: torch.Tensor):
+        """q (scaled by hd**-0.5 after the fp32 product), k, v, each fp32
+        [B, T, D]; ``fuse_qkv`` makes them one [D, 3D] product, split."""
+        cfg, a = self.cfg, self.attn
+        scale = cfg.head_dim ** -0.5
+        if not cfg.fuse_qkv:
+            return self._linear(a.q, y) * scale, self._linear(a.k, y), self._linear(a.v, y)
+        w = torch.cat([self._weight(a.q), self._weight(a.k), self._weight(a.v)])
+        b = torch.cat([a.q.bias, a.k.bias, a.v.bias])
+        q, k, v = linear(y, w, b, torch_dtype(cfg.compute_dtype), cfg.use_fast_bwd).chunk(3, -1)
+        return q * scale, k, v
 
     def attn_block(self, x: torch.Tensor, kv_len: Optional[int] = None,
                    train: bool = False, seed: Optional[int] = None) -> torch.Tensor:
@@ -245,13 +318,10 @@ class EncoderLayer(nn.Module):
         cdtype = torch_dtype(cfg.compute_dtype)
         b, t, d = x.shape
         h, hd = cfg.num_heads, cfg.head_dim
-        y = self.ln_attn(x)
-        # q is scaled after the fp32 linear, then everything goes to the
-        # compute dtype in [B, H, T, D], contiguous for the kernel
-        q = self._linear(self.attn.q, y) * (hd ** -0.5)
-        k = self._linear(self.attn.k, y)
-        v = self._linear(self.attn.v, y)
-        q, k, v = (z.view(b, t, h, hd).transpose(1, 2)
+        # q, k, v go to the compute dtype in [B, H, T, D], contiguous for
+        # the kernel
+        q, k, v = self._qkv(self.ln_attn(x))
+        q, k, v = (z.reshape(b, t, h, hd).transpose(1, 2)
                    .to(cdtype, memory_format=torch.contiguous_format).contiguous()
                    for z in (q, k, v))
         a = self_attention(q, k, v, kv_len=kv_len, impl=cfg.attention_impl)
@@ -328,10 +398,9 @@ class XLSR(nn.Module):
 
     def __init__(self, cfg: XLSRConfig):
         super().__init__()
-        if cfg.conv_impl != "conv":
-            raise NotImplementedError(f"conv_impl={cfg.conv_impl!r} not ported yet")
-        if cfg.fuse_qkv:
-            raise NotImplementedError("fuse_qkv=True not ported yet")
+        if cfg.conv_impl not in CONV_IMPLS:
+            raise ValueError(f"conv_impl must be one of {CONV_IMPLS}, "
+                             f"got {cfg.conv_impl!r}")
         if cfg.attention_impl not in IMPLS:
             raise ValueError(f"attention_impl must be one of {IMPLS}, "
                              f"got {cfg.attention_impl!r}")
@@ -355,12 +424,17 @@ class XLSR(nn.Module):
 
     def feature_encoder(self, wav: torch.Tensor) -> torch.Tensor:
         """[B, T_samples] -> [B, T_frames, C]: conv -> fp32 LN -> GELU per
-        block, all in the compute dtype."""
+        block, all in the compute dtype.  ``conv_impl`` 'gemm' and 'phase'
+        compute the conv as products (fp32 out, the bias added in fp32)."""
         cdtype = self.compute_dtype
+        impl = CONV_IMPLS[self.cfg.conv_impl]
         x = wav[..., None].to(cdtype)
-        for block, (_, _, stride) in zip(self.feature_extractor.convs,
-                                         self.cfg.conv_layers):
-            x = block.conv(x, stride=stride, compute_dtype=cdtype)
+        for block, (_, kernel, stride) in zip(self.feature_extractor.convs,
+                                              self.cfg.conv_layers):
+            if impl is None:
+                x = block.conv(x, stride=stride, compute_dtype=cdtype)
+            else:
+                x = impl(block.conv, x, kernel, stride, cdtype)
             x = gelu(block.ln(x).to(cdtype), self.cfg.approx_gelu)
         return x
 

@@ -8,7 +8,8 @@ the JAX layout: q, k, v are [B, H, T, D] and q is already scaled by
   masked to -inf, fp32 softmax, P cast to the V dtype before PV.
 - ``flash_attention_forward``: (O, LSE) from the hand-written Hopper kernel
   (``csrc/flash_attn_fwd.cu``) for CUDA tensors, and from its plain version
-  ``flash_attention_forward_reference`` for CPU tensors.
+  ``flash_attention_forward_reference`` for CPU tensors, through the
+  registered op ``scl_port::flash_attn_fwd`` (``ops/custom_ops``).
 - ``flash_attention_backward``: (dq, dk, dv) from the two hand-written
   Hopper kernels (``csrc/flash_attn_bwd.cu``; the dq kernel also computes
   D = rowsum(dO * O), which dk/dv reads) for CUDA tensors, and from their
@@ -27,7 +28,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _kernels
+from . import _kernels, custom_ops  # noqa: F401  (custom_ops registers the op)
 
 IMPLS = ("auto", "flash", "reference")
 
@@ -113,18 +114,27 @@ def flash_attention_backward_reference(q, k, v, o, lse, do, kv_len=None):
     return (dq, *flash_bwd_dkv_reference(q, k, v, do, lse, delta, kv_len))
 
 
-def flash_attention_forward(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-    kv_len: Optional[int] = None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(O, LSE), not differentiable: the Hopper kernel for CUDA tensors, the
-    plain version for CPU tensors (counterpart of ``_flash_forward``).
-    ``flash_attention`` gives gradients."""
-    q, k, v = q.detach(), k.detach(), v.detach()
+def _flash_forward(q, k, v, kv_len):
+    """(O, LSE) for the autograd Function: the kernel or the plain version,
+    called directly (no registered op), as the train step has always run
+    it."""
     if not q.is_cuda:
         _kernels.check_flash_inputs(q, k, v, kv_len)
         return flash_attention_forward_reference(q, k, v, kv_len)
     return _kernels.flash_attn_fwd(q, k, v, kv_len)
+
+
+def flash_attention_forward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+    kv_len: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(O, LSE), not differentiable, through the registered op
+    ``scl_port::flash_attn_fwd`` (``ops/custom_ops``): the Hopper kernel
+    for CUDA tensors, the plain version for CPU tensors (counterpart of
+    ``_flash_forward``).  ``torch.export`` records the op, so an exported
+    scorer launches the kernel too.  ``flash_attention`` gives gradients."""
+    kv = None if kv_len is None else int(kv_len)
+    return torch.ops.scl_port.flash_attn_fwd(q.detach(), k.detach(), v.detach(), kv)
 
 
 def flash_attention_backward(q, k, v, o, lse, do, kv_len=None):
@@ -147,7 +157,7 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, kv_len):
-        o, lse = flash_attention_forward(q, k, v, kv_len)
+        o, lse = _flash_forward(q, k, v, kv_len)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.kv_len = kv_len
         return o

@@ -11,6 +11,12 @@ the JAX [in, out] and [K, Cin/groups, Cout] leaves once, at load).
 - ``layer_norm`` computes in fp32 and returns the input dtype;
 - ``conv1d`` returns the operand dtype;
 - ``gelu`` is exact (erf) unless ``approximate`` selects the tanh form.
+
+While ``torch.export`` records a program (``torch.compiler.is_exporting``),
+the products whose formulation depends on the device (``linear``'s and
+``conv1d``'s) go through the ``scl_port`` ops of ``ops/custom_ops``, which
+pick it when the program runs, on the CPU or on the card; eager calls
+take the direct route, which costs no dispatch of an op.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+from scl_deepfake_audio_detection_torch.ops import custom_ops  # noqa: F401  (registers the ops)
 
 from scl_deepfake_audio_detection_torch.utils.tree import keyed_leaves
 
@@ -52,13 +60,19 @@ def dropout(x: torch.Tensor, rate: float, train: bool = False,
     return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))
 
 
-def _matmul_fp32(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
+def _mm_f32(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
     """x [N, in] @ w_t [in, out] with fp32 accumulation and an fp32 result.
     CUDA reads bf16 operands directly (``out_dtype``); the CPU upcasts,
     which gives the same exact products."""
     if x.is_cuda and x.dtype != torch.float32:
         return torch.mm(x, w_t, out_dtype=torch.float32)
     return torch.mm(x.float(), w_t.float())
+
+
+def _matmul_fp32(x: torch.Tensor, w_t: torch.Tensor) -> torch.Tensor:
+    if torch.compiler.is_exporting():
+        return torch.ops.scl_port.mm_f32(x, w_t)
+    return _mm_f32(x, w_t)
 
 
 def _matmul_to(a: torch.Tensor, b: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -92,8 +106,9 @@ class _Matmul(torch.autograd.Function):
         x2, w = ctx.saved_tensors
         if ctx.fast_bwd:
             dy = dy.to(w.dtype)
-        dx = _matmul_to(dy, w.to(dy.dtype), x2.dtype)
-        dw = _matmul_to(dy.t(), x2.to(dy.dtype), w.dtype)
+        need_dx, need_dw, _ = ctx.needs_input_grad
+        dx = _matmul_to(dy, w.to(dy.dtype), x2.dtype) if need_dx else None
+        dw = _matmul_to(dy.t(), x2.to(dy.dtype), w.dtype) if need_dw else None
         return dx, dw, None
 
 
@@ -133,6 +148,14 @@ def conv1d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         w = w.to(compute_dtype)
+    if torch.compiler.is_exporting():
+        (lo, hi), = [(0, 0)] if padding == "VALID" else padding
+        return torch.ops.scl_port.conv1d(x, w, b, stride, lo, hi, groups, dilation)
+    return _conv1d(x, w, b, stride, padding, groups, dilation)
+
+
+def _conv1d(x, w, b, stride, padding, groups, dilation) -> torch.Tensor:
+    """``conv1d`` on operands already in one dtype."""
     xc = x.transpose(1, 2)
     if padding != "VALID":
         (lo, hi), = padding

@@ -26,7 +26,8 @@ A train state is the JAX package's, so each package resumes the other's:
   port) in the metadata.
 
 ``average_checkpoints`` and ``load_pretrained_partially`` are the JAX
-package's, on numpy trees.
+package's, on numpy trees; ``load_reference_head_checkpoint`` reads a
+reference ``epoch_N.pth`` (``models/convert`` maps it).
 """
 
 from __future__ import annotations
@@ -302,4 +303,17 @@ def load_pretrained_partially(params, pretrained, subtrees=None):
                 raise ValueError(f"shape mismatch at {k}{ks}: "
                                  f"{np.shape(new[ks])} vs {np.shape(leaf)}")
         out[k] = pretrained[k]
+    return out
+
+
+def load_reference_head_checkpoint(path: str) -> Dict[str, np.ndarray]:
+    """A reference ``epoch_N.pth`` (a torch state dict) as a flat numpy dict
+    with the ``module.``/``_orig_mod.`` prefixes stripped, as the
+    reference's ``main.py`` strips them before loading.  A state dict holds
+    tensors only, so nothing but tensors is unpickled."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    out = {}
+    for k, v in sd.items():
+        k = k.replace("module.", "").replace("_orig_mod.", "")
+        out[k] = v.detach().cpu().numpy() if hasattr(v, "detach") else np.asarray(v)
     return out

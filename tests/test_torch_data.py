@@ -21,6 +21,7 @@ import os
 import numpy as np
 import pytest
 
+import jax_native_ready
 import scl_deepfake_audio_detection_tpu.native as jnative
 import scl_deepfake_audio_detection_torch.native as pnative
 from scl_deepfake_audio_detection_tpu.data import augment_registry as JR
@@ -55,13 +56,13 @@ def no_native(monkeypatch):
 
 @pytest.fixture
 def both_native():
-    if not (jnative.available() and pnative.available()):
+    if not jax_native_ready.host():
         pytest.skip("a native host library does not build here")
 
 
 @pytest.fixture
 def jax_native_only(monkeypatch):
-    if not jnative.available():
+    if not jax_native_ready.host():
         pytest.skip("the JAX package's native library does not build here")
     monkeypatch.setattr(pnative, "available", lambda: False)
 

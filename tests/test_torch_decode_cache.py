@@ -18,6 +18,7 @@ import torch
 
 import jax
 
+import jax_native_ready
 import scl_deepfake_audio_detection_tpu.native as jnative
 from scl_deepfake_audio_detection_tpu.cli import context as jcontext
 from scl_deepfake_audio_detection_tpu.cli import main as jax_main
@@ -46,7 +47,7 @@ def _eval_db(root):
     """Five utterances of 9000-30000 samples; two are FLAC where the codec
     library builds (the LA19 and DF21 lists ship FLAC)."""
     rng = np.random.default_rng(21)
-    flac = jnative.codec_available()
+    flac = jax_native_ready.codec()
     utts = []
     for i, n in enumerate((9000, 30000, 16000, 21000, 12000)):
         x = (np.clip(np.round(0.1 * rng.normal(size=n) * 32768), -32768, 32767)
@@ -175,7 +176,7 @@ def natives(request, monkeypatch):
     if request.param == "off":
         for mod in (jnative, pnative):
             monkeypatch.setattr(mod, "available", lambda: False)
-    elif not (jnative.available() and pnative.available()):
+    elif not jax_native_ready.host():
         pytest.skip("a native host library does not build here")
     return request.param
 

@@ -407,3 +407,24 @@ def test_the_serving_batcher_launches_the_forward_from_its_worker_thread():
     assert _kernels.LAUNCHES["flash_attn_fwd"] == ssl.encoder_layers * b.batches
     want = score_step(model, rows).float().cpu().numpy()
     np.testing.assert_array_equal(np.stack(got), want)
+
+
+@pytest.mark.gpu
+def test_exported_scorer_launches_the_flash_kernel_on_the_card(tmp_path):
+    """An artifact exported on the CPU scores on the card through the Hopper
+    flash forward, one launch per encoder layer and forward, within bf16
+    rounding of its scores on the CPU."""
+    _need_card()
+    from scl_deepfake_audio_detection_torch.export import export_scorer, load_scorer
+    from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+
+    cfg = XLSRConfig.tiny(compute_dtype="bfloat16")
+    export_scorer(LinearNLL(ssl=cfg, emb_dim=16, device="cpu", seed=0), str(tmp_path), cut=16000)
+    wav = (0.1 * np.random.default_rng(0).normal(size=(3, 16000))).astype(np.float32)
+    scorer = load_scorer(str(tmp_path), device="cuda")
+    _kernels.reset_launches()
+    got = scorer.score(wav)
+    assert _kernels.LAUNCHES["flash_attn_fwd"] == cfg.encoder_layers
+    want = load_scorer(str(tmp_path), device="cpu").score(wav)
+    np.testing.assert_allclose(got, want, atol=5e-2, rtol=0)

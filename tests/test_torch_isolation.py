@@ -42,6 +42,12 @@ def test_every_port_module_imports_without_jax_or_the_jax_package():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+def test_the_sweep_holds_the_conversion_and_artifact_modules():
+    mods = set(_port_modules())
+    for m in ("models.convert", "export", "ops.custom_ops", "train.parity", "cli.export"):
+        assert f"{port.__name__}.{m}" in mods, m
+
+
 def test_importing_the_kernels_module_builds_nothing():
     code = (
         "from scl_deepfake_audio_detection_torch.ops import _kernels as K\n"

@@ -149,10 +149,14 @@ def test_seeded_init_is_reproducible_and_seed_dependent():
 
 
 def test_training_entry_raises_not_ported():
-    """Training is ported; a training option that is not raises."""
-    with pytest.raises(NotImplementedError):
-        LinearNLL(ssl=XLSRConfig.tiny(fuse_qkv=True), emb_dim=16, device="cpu")
-    model = LinearNLL(ssl=XLSRConfig.tiny(), emb_dim=16, device="cpu")
+    """Training is ported, every XLS-R option with it; a model of Slice G
+    raises."""
+    from scl_deepfake_audio_detection_torch.utils.registry import MODELS
+
+    with pytest.raises(NotImplementedError, match="Slice G"):
+        MODELS.get("wav2vec2_aasist")
+    model = LinearNLL(ssl=XLSRConfig.tiny(fuse_qkv=True, conv_impl="gemm"), emb_dim=16,
+                      device="cpu")
     assert model.apply(torch.zeros(1, 4000), train=True).log_probs.requires_grad
 
 
@@ -241,9 +245,9 @@ def test_port_cli_eval_writes_the_jax_cli_rows(tmp_path):
     assert _rows(pout2) == got
 
 
-@pytest.mark.parametrize("argv", [["--train"], ["--export_model", "d"],
-                                  ["--eval", "--from_export", "d"],
-                                  ["--serve", "--ssl_checkpoint", "x.pt"]])
+@pytest.mark.parametrize("argv", [["--train"], ["--eval", "--distill_from", "t.ckpt"],
+                                  ["--eval", "--mesh", "1,1"],
+                                  ["--serve", "--zero1"]])
 def test_port_cli_refuses_unported_modes(argv, capsys):
     from scl_deepfake_audio_detection_torch.cli import main as port_main
 
@@ -252,14 +256,18 @@ def test_port_cli_refuses_unported_modes(argv, capsys):
 
 
 def test_port_cli_refuses_reference_pth(tmp_path, capsys):
+    """A reference ``epoch_N.pth`` loads as ``--model_path``; as a
+    distillation teacher (``--distill_from``, Slice H) it is refused before
+    any file is read."""
     from scl_deepfake_audio_detection_torch.cli import main as port_main
 
     db = tmp_path / "db"
     _db(db, n=1, layout="eval_only")
-    rc = port_main(["--eval", "--config", os.path.join(REPO, "configs", "conf-eval-only.yaml"),
-                    "--database_path", str(db), "--model_path", "epoch_1.pth",
+    rc = port_main(["--config", os.path.join(REPO, "configs", "conf-eval-only.yaml"),
+                    "--database_path", str(db), "--distill_from", "epoch_1.pth",
                     "--ssl_preset", "tiny", "--device", "cpu"])
-    assert rc == 2 and "not ported yet" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert rc == 2 and "not ported yet" in err and "Slice H" in err
 
 
 def test_entry_points_need_a_card_unless_the_cpu_is_asked_for():

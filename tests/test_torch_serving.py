@@ -37,6 +37,7 @@ import torch
 
 import jax
 
+import jax_native_ready
 import scl_deepfake_audio_detection_tpu.native as jnative
 from scl_deepfake_audio_detection_tpu import serving as jserving
 from scl_deepfake_audio_detection_tpu.cli import main as jax_main
@@ -347,7 +348,7 @@ def served(tmp_path_factory):
                     ("long.wav", 100000)):
         files[name] = str(root / name)
         save_wav(files[name], (0.1 * rng.normal(size=n)).astype(np.float32), SR)
-    if jnative.codec_available():
+    if jax_native_ready.codec():
         x = np.clip(np.round(0.1 * rng.normal(size=20000) * 32768), -32768, 32767) / 32768
         files["d.flac"] = str(root / "d.flac")
         jnative.encode_audio(files["d.flac"], x.astype(np.float32), SR, "flac")

@@ -214,14 +214,21 @@ def test_dropout_draws_agree_across_remat(ssl_tree):
 
 
 @pytest.mark.parametrize("kw,err", [
-    ({"conv_impl": "gemm"}, NotImplementedError),
-    ({"conv_impl": "phase"}, NotImplementedError),
+    ({"mesh_shape": [2, 1]}, NotImplementedError),
+    ({"zero1": True}, NotImplementedError),
     ({"remat_policy": "everything"}, ValueError),
-    ({"fuse_qkv": True}, NotImplementedError),
+    ({"mesh_shape": [1, 2]}, NotImplementedError),
 ])
 def test_unported_training_options_raise(kw, err):
+    """Every XLS-R training option is ported (the conv impls and fuse_qkv
+    build); multi-device meshes and ZeRO-1 (Slice H) raise in ``Engine``."""
+    model = LinearNLL(ssl=PX.XLSRConfig.tiny(conv_impl="phase", fuse_qkv=True), emb_dim=16,
+                      device="cpu")
     with pytest.raises(err):
-        PX.XLSR(PX.XLSRConfig.tiny(**kw))
+        if "remat_policy" in kw:
+            PX.XLSR(PX.XLSRConfig.tiny(**kw))
+        else:
+            PE.Engine(model, TrainConfig(**kw))
     PX.XLSR(PX.XLSRConfig.tiny(compute_dtype="bfloat16", grad_stack_dtype="bfloat16"))
 
 

@@ -113,13 +113,107 @@ def test_flagship_shape_constants():
         compute_dtype="bfloat16", gelu_impl="exact").approx_gelu
 
 
-@pytest.mark.parametrize("kw,err", [({"conv_impl": "gemm"}, NotImplementedError),
-                                    ({"conv_impl": "phase"}, NotImplementedError),
-                                    ({"fuse_qkv": True}, NotImplementedError),
+@pytest.mark.parametrize("kw,err", [({"model": "xlsr_aasist"}, NotImplementedError),
+                                    ({"model": "xlsr_resnet"}, NotImplementedError),
+                                    ({"model": "xlsr_btse"}, NotImplementedError),
                                     ({"attention_impl": "xla"}, ValueError)])
 def test_unported_options_raise(kw, err):
+    """Every XLS-R option is ported; the back-ends of Slice G are not, and
+    the TPU's 'xla' attention has no counterpart."""
+    from scl_deepfake_audio_detection_torch.utils.registry import MODELS
+
     with pytest.raises(err):
-        PX.XLSR(PX.XLSRConfig.tiny(**kw))
+        if "model" in kw:
+            MODELS.get(kw["model"])
+        else:
+            PX.XLSR(PX.XLSRConfig.tiny(**kw))
+    for impl in ("conv", "gemm", "phase"):
+        PX.XLSR(PX.XLSRConfig.tiny(conv_impl=impl, fuse_qkv=True))
+
+
+# the JAX test's phase stack (k > s overlap with cin > 1, k = s, k = 3 s / 2)
+PHASE_STACK = ((6, 10, 5), (8, 5, 3), (8, 3, 2), (8, 2, 2))
+
+
+@pytest.mark.parametrize("impl", ["gemm", "phase"])
+@pytest.mark.parametrize("stack", [None, PHASE_STACK], ids=["tiny", "phase_stack"])
+def test_conv_impls_match_jax_and_conv(impl, stack):
+    """'gemm' and 'phase' against the JAX package's own impls and against
+    the port's 'conv', at the JAX test's 2e-5 (fp32)."""
+    kw = {} if stack is None else {"conv_layers": stack}
+    jcfg = JX.XLSRConfig.tiny(conv_impl=impl, **kw)
+    params = jax.tree.map(np.asarray, JX.init_xlsr(jax.random.key(0), jcfg))
+    wav = np.random.default_rng(4).normal(size=(2, 3201)).astype(np.float32)
+    want = np.asarray(JX.feature_encoder(params, jcfg, jnp.asarray(wav)))
+    x = torch.from_numpy(wav)
+    got = {}
+    for name in ("conv", impl):
+        model = load_jax_params(PX.XLSR(PX.XLSRConfig.tiny(conv_impl=name, **kw)), params)
+        with torch.inference_mode():
+            got[name] = model.feature_encoder(x).numpy()
+    assert got[impl].shape == want.shape
+    np.testing.assert_allclose(got[impl], want, atol=2e-5, rtol=0)
+    np.testing.assert_allclose(got[impl], got["conv"], atol=2e-5, rtol=0)
+
+
+@pytest.mark.parametrize("impl", ["gemm", "phase"])
+def test_conv_impls_bf16_match_jax(wav, impl):
+    """bf16: fp32 products of bf16 operands rounded once after LN, in both
+    packages; held to the file's bf16 tolerance."""
+    jcfg, params, _ = _models("bfloat16")
+    jcfg = jcfg.with_(conv_impl=impl)
+    want = JX.feature_encoder(params["ssl"], jcfg, jnp.asarray(wav))
+    model = load_jax_params(PX.XLSR(PX.XLSRConfig.tiny(compute_dtype="bfloat16",
+                                                       conv_impl=impl)), params["ssl"])
+    with torch.inference_mode():
+        got = model.feature_encoder(torch.from_numpy(wav))
+    assert got.dtype == torch.bfloat16
+    _close(got, want, "bfloat16")
+
+
+def _fused_grads(ssl_tree, policy):
+    """Output and fp32 parameter gradients of the fused-QKV port XLS-R under
+    remat ``policy`` (None: no remat) for sum(out * g)."""
+    cfg = PX.XLSRConfig.tiny(fuse_qkv=True, remat=policy is not None,
+                             remat_policy=policy or "attn")
+    model = load_jax_params(PX.XLSR(cfg), ssl_tree)
+    wav = torch.from_numpy((0.1 * np.random.default_rng(0).normal(size=(2, 2000)))
+                           .astype(np.float32))
+    out = model.extract_features(wav)
+    g = np.random.default_rng(1).normal(size=tuple(out.shape)).astype(np.float32)
+    (out * torch.from_numpy(g)).sum().backward()
+    return out.detach().numpy(), {n: p.grad.numpy() for n, p in model.named_parameters()}, g
+
+
+@pytest.fixture(scope="module")
+def fused_jax():
+    """The JAX fuse_qkv=True forward and gradients on the same inputs."""
+    from scl_deepfake_audio_detection_torch.models.params import from_jax
+
+    tree = jax.tree.map(np.asarray, JX.init_xlsr(jax.random.key(3), JX.XLSRConfig.tiny()))
+    jcfg = JX.XLSRConfig.tiny(fuse_qkv=True)
+    wav = jnp.asarray((0.1 * np.random.default_rng(0).normal(size=(2, 2000))).astype(np.float32))
+    out = np.asarray(JX.extract_features(jax.tree.map(jnp.asarray, tree), jcfg, wav))
+    g = np.random.default_rng(1).normal(size=out.shape).astype(np.float32)
+    grads = jax.grad(lambda p: jnp.sum(JX.extract_features(p, jcfg, wav) * g))(
+        jax.tree.map(jnp.asarray, tree))
+    want = from_jax(jax.tree.map(np.asarray, grads), PX.XLSR(PX.XLSRConfig.tiny()))
+    return tree, out, {n: t.numpy() for n, t in want.items()}
+
+
+@pytest.mark.parametrize("policy", [None, *PX.REMAT_POLICIES])
+def test_fuse_qkv_forward_and_grads_match_jax(fused_jax, policy):
+    """fuse_qkv: one [D, 3D] product over the same q/k/v parameters, q
+    scaled after the split; forward and fp32 gradients within 1e-5 of JAX's
+    fuse_qkv=True (gradients relative to the leaf's largest, at least 1),
+    under every remat policy."""
+    tree, want_out, want = fused_jax
+    got_out, got, _ = _fused_grads(tree, policy)
+    np.testing.assert_allclose(got_out, want_out, atol=1e-5, rtol=0)
+    assert set(got) == set(want)
+    for n, a in got.items():
+        tol = 1e-5 * max(np.abs(want[n]).max(), 1.0)
+        np.testing.assert_allclose(a, want[n], atol=tol, rtol=0, err_msg=n)
 
 
 def test_reference_attention_impl_matches_flash_in_fp32(wav):
