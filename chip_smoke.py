@@ -30,12 +30,14 @@ Phases, each of which fails the script with a non-zero exit:
    impl='reference'; then ``Engine.fit`` of the conf-3 model (bf16, remat
    'attn') for one epoch of three [2, 11, 64000] steps and one dev batch,
    with every metric finite and the launch counts the remat policy implies;
-   then the training CLI (no mode flag) in-process at XLS-R 300M with
+   then the training CLI (no mode flag) in-process at XLS-R 300M's widths
+   and ``EARLY_LAYERS`` (4) encoder layers (``cut_depth``; ``phase_zoo``
+   trains through the CLI at all 24) with
    ``configs/conf-3-linear.yaml`` verbatim but for its three paths, on a
    database written in a temporary directory (8 train and 2 dev anchors of
    48000-80000 samples, three vocoded copies each, noise and RIR files):
-   4 train steps and 1 dev step with host augmentation, launches 216 / 96
-   / 96, finite ``metrics.jsonl``, and ``last.ckpt`` loaded into a fresh
+   4 train steps and 1 dev step with host augmentation, launches 9 / 4 / 4
+   a layer, finite ``metrics.jsonl``, and ``last.ckpt`` loaded into a fresh
    model scoring exactly as the trained one; it prints the CLI's wall time
    and ms per step, the host's ms per 11-view group, peak memory and each
    checkpoint's size and write time.  Then ``--device_aug``
@@ -44,8 +46,8 @@ Phases, each of which fails the script with a non-zero exit:
    nb 1024 (FFT length 65024), augall_3 in both SNR modes, int16-amplitude
    rows within 4 LSB and signal rows within 1e-5, launching no
    hand-written kernel; the training CLI with ``--device_aug`` on the same
-   database and config, 4 train steps and 1 dev step, launches 216 / 96 /
-   96 and a finite ``metrics.jsonl``, its dev views composed again by a
+   database, config and depth, 4 train steps and 1 dev step, launches 9 /
+   4 / 4 a layer and a finite ``metrics.jsonl``, its dev views composed again by a
    fresh composer and found identical; it prints the CLI's ms per step
    beside the host path's, the host's ms per group through
    ``DeviceAugTrainLoader`` and the composer's ms per step.  Then remat
@@ -53,6 +55,18 @@ Phases, each of which fails the script with a non-zero exit:
    'attn', 'attn_ffn', 'dots' and 'full', and two steps with bf16
    weight-grad stacks under fp32 compute (``--bf16_grads``), each with
    48 / 24 / 24 launches per step, ms of the second step and peak memory.
+   Then the model zoo (``phase_zoo``), AASIST with ``configs/conf-aasist.yaml``
+   and ResNet-18 (a YAML the phase writes) at XLS-R 300M bf16 on a
+   database of 4 train and 2 dev anchors and 16 eval clips: 2 train steps
+   and 1 dev step through the training CLI (120 / 48 / 48 launches), the
+   running statistics finite and moved, ``last.ckpt`` in a fresh model
+   scoring exactly as the trained one, ``--eval`` from it at [16, 64600]
+   (24 launches), ``--serve`` replies equal to its cm1 to 6 decimals,
+   ``--export_model`` fp (and int8 for AASIST, its buffers bit-equal to
+   the fp artifact's) and ``--eval --from_export`` within 1e-3 of ``--eval``
+   (24 launches), ``score_step``'s utt/s; then the committed tiny goldens
+   of both (``tests/golden/mini_{aasist,resnet}``) through the kernel and
+   at impl='reference', fp32, within 1e-4.
    Between ``--eval`` and ``fit``, the
    eval modes at XLS-R 300M bf16 on a 32-utterance database with four
    clips of 150000-260000 samples (``phase_eval_modes``): ``--eval``, then
@@ -77,15 +91,17 @@ Phases, each of which fails the script with a non-zero exit:
    MicroBatcher's worker thread; utt/s, p50 and p99 request latency and
    rows per batch; and ``--eval --decode_cache`` twice, each score file
    equal to the run without a cache.  Then the scoring artifact
-   (``phase_export``) at XLS-R 300M bf16 on the same database:
+   (``phase_export``) at XLS-R 300M's widths and 4 encoder layers
+   (``cut_depth``; ``phase_zoo`` exports at all 24) bf16 on the same
+   database:
    ``--export_model`` (fp and int8, a ``torch.export`` program recorded on
    the card, no weight in it), ``--verify_export`` (the fp artifact
    passes), ``--eval --from_export`` with cm1 within 1e-3 of ``--eval``,
    ``--serve --from_export`` on 48 requests, the flash forward launched
-   exactly 24 times per forward of the exported program, and the
+   exactly once a layer per forward of the exported program, and the
    artifact's utt/s beside ``score_step``'s on a batch on the card; the
-   reference checkpoint (``phase_reference_ckpt``): the seeded 300M model
-   as a ``.ckpt``, ``--export_reference_ckpt`` to a ``.pth`` whose leaves
+   reference checkpoint (``phase_reference_ckpt``, at the same cut
+   depth): the seeded model as a ``.ckpt``, ``--export_reference_ckpt`` to a ``.pth`` whose leaves
    are the ``.ckpt``'s (the positional conv's kernel within one fp32 ulp),
    ``--eval`` from each with scores within 1e-4, ``--parity_check``
    against the ``.pth``'s scores (exit 0) and a perturbed copy (exit 1);
@@ -115,12 +131,14 @@ input, its ``ms_before`` is that kernel and torch's D as one graphed
 callable, so that both times cover the same work.
 
 The JSON object with one entry per kernel comes two lines before the last
-(launches counted on the path of the training CLI with ``--device_aug``,
+(launches counted on the model zoo's path, ``phase_zoo``'s CLI runs,
 with each path's counts under
 ``launches_by_path``: ``eval``, ``eval_modes``, ``serve`` (the stdin
 runs), ``serve_http``, ``eval_from_export``, ``serve_from_export``,
 ``train``, ``train_cli``,
-``train_cli_device_aug`` and ``remat_<policy>_per_step``;
+``train_cli_device_aug``, ``remat_<policy>_per_step`` and
+``zoo_<aasist|resnet>_<train_cli|eval|serve|eval_from_export>``; the
+zoo's utt/s, ms per step and peak memory under the forward's ``zoo``;
 the forward's times at bucketed scoring's longest batch [16, 16, 349, 64]
 under ``eval_modes``; times at the training shape, ``ms`` = ``graph_ms``,
 with ``eager_ms`` and ``ms_before``; the forward's eval-shape times under
@@ -132,6 +150,7 @@ then the card's name and power limit, and the last line
 
 import argparse
 import concurrent.futures
+import contextlib
 import importlib.util
 import json
 import math
@@ -150,6 +169,8 @@ GOLDEN_CKPT = os.path.join(ROOT, "tests", "golden", "mini_linear_nll.ckpt")
 GOLDEN_SCORES = os.path.join(ROOT, "tests", "golden", "expected_scores.txt")
 EVAL_CONFIG = os.path.join(ROOT, "configs", "conf-eval-only.yaml")
 CONF3_CONFIG = os.path.join(ROOT, "configs", "conf-3-linear.yaml")
+AASIST_CONFIG = os.path.join(ROOT, "configs", "conf-aasist.yaml")
+GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, dense bf16 rate
 HBM_BYTES_PER_S = 3.35e12
@@ -197,6 +218,26 @@ MAIN_PATH_ATOL = 5e-2
 MAIN_SHAPE = (16, 16, 201, 64)  # XLS-R 300M at [16, 64600]: B, H, T, D
 TRAIN_SHAPE = (22, 16, 199, 64)  # XLS-R 300M at [2 x 11, 64000]
 BUCKET_SHAPE = (16, 16, 349, 64)  # bucketed scoring's longest batch, [16, 112000]
+# The artifact, reference-checkpoint, training-CLI and --device_aug phases
+# run XLS-R 300M's widths at this many encoder layers: phase_zoo drives the
+# CLI's training and the export path again at all 24, and their cost (the
+# export trace, checkpoints of 1.3 and 3.5 GB) grows with depth.
+EARLY_LAYERS = 4
+
+
+@contextlib.contextmanager
+def cut_depth(layers=EARLY_LAYERS):
+    """``XLSRConfig.xlsr_300m``, and so ``--ssl_preset xlsr_300m``, at its
+    full width with ``layers`` encoder layers while the block runs."""
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+
+    full = XLSRConfig.__dict__["xlsr_300m"]
+    XLSRConfig.xlsr_300m = classmethod(
+        lambda cls, **kw: full.__func__(cls, **{"encoder_layers": layers, **kw}))
+    try:
+        yield
+    finally:
+        XLSRConfig.xlsr_300m = full
 CONF3 = dict(groups=2, views=11, samples=64000, steps=3, seed=1234)
 REPLACES = {
     "flash_attn_fwd": "scl_deepfake_audio_detection_tpu/ops/attention.py:144",
@@ -1205,12 +1246,13 @@ def phase_conv_impls(K, card):
 
 
 def phase_export(K, card, tmp):
-    """The scoring artifact at XLS-R 300M bf16, seeded random weights, on
-    ``phase_eval_modes``' database: ``--export_model`` (fp and int8, the
-    program recorded on the card), ``--verify_export`` (the fp artifact
-    passes at --parity_tol), ``--eval --from_export`` with cm1 within 1e-3
-    of ``--eval``, ``--serve --from_export`` on 48 requests; the flash
-    forward launched exactly 24 times per forward of the exported program
+    """The scoring artifact at XLS-R 300M's widths bf16 (``main`` cuts the
+    depth: ``cut_depth``), seeded random weights, on ``phase_eval_modes``'
+    database: ``--export_model`` (fp and int8, the program recorded on the
+    card), ``--verify_export`` (the fp artifact passes at --parity_tol),
+    ``--eval --from_export`` with cm1 within 1e-3 of ``--eval``, ``--serve
+    --from_export`` on 48 requests; the flash forward launched exactly once
+    a layer per forward of the exported program
     in both, and in-process the artifact's utt/s beside ``score_step``'s on
     a [16, 64600] batch on the card."""
     from scl_deepfake_audio_detection_torch import cli
@@ -1337,7 +1379,8 @@ def phase_export(K, card, tmp):
 
 
 def phase_reference_ckpt(K, card, tmp):
-    """The reference ``epoch_N.pth`` surface at XLS-R 300M: the seeded
+    """The reference ``epoch_N.pth`` surface at XLS-R 300M's widths (``main``
+    cuts the depth: ``cut_depth``): the seeded
     model as a ``.ckpt``; ``--export_reference_ckpt`` of it; ``--eval``
     from the ``.pth``, from the ``.ckpt`` (every leaf equal but the
     positional conv's kernel, which the weight-norm split and contraction
@@ -1374,7 +1417,8 @@ def phase_reference_ckpt(K, card, tmp):
     t0 = time.perf_counter()
     if cli.main(flags + ["--model_path", own, "--export_reference_ckpt", pth]) != 0:
         raise AssertionError("--export_reference_ckpt exited non-zero")
-    print(f"[refckpt] --export_reference_ckpt of a 300M .ckpt ({os.path.getsize(own)} bytes) "
+    print(f"[refckpt] --export_reference_ckpt of a {layers}-layer 300M-wide .ckpt "
+          f"({os.path.getsize(own)} bytes) "
           f"-> {os.path.getsize(pth)} bytes in {time.perf_counter() - t0:.2f}s")
     back, _ = convert.from_reference_model_checkpoint(
         ckpt.load_reference_head_checkpoint(pth), like=XLSRConfig.xlsr_300m())
@@ -1739,14 +1783,15 @@ CLI_DB = dict(train=8, dev=2, min_len=48000, max_len=80000, seed=2024,
               vocoders=("hifigan", "hn-sinc-nsf-hifi", "waveglow"))
 
 
-def _cli_database(root):
+def _cli_database(root, config=CONF3_CONFIG, **counts):
     """8 train and 2 dev bonafide anchors of 48000-80000 samples (both the
     pad and the random-crop branch of ``multiview_pad``), three vocoded
     copies of each, two noise files and two decaying RIRs of 0.3-0.5 s, the
-    scp lists, and conf-3's YAML with only its three paths changed."""
+    scp lists, and ``config`` (conf-3's YAML) with only its three paths
+    changed; ``counts`` overrides ``CLI_DB``'s train and dev counts."""
     from scl_deepfake_audio_detection_torch.utils.audio_io import save_wav
 
-    c = CLI_DB
+    c = {**CLI_DB, **counts}
     rng = np.random.default_rng(c["seed"])
     n = c["train"] + c["dev"]
     utts = [f"anchor{i:02d}.wav" for i in range(n)]
@@ -1769,16 +1814,16 @@ def _cli_database(root):
         f.write("\n".join(utts[:c["train"]]) + "\n")
     with open(os.path.join(root, "scp", "dev_bonafide.lst"), "w") as f:
         f.write("\n".join(utts[c["train"]:]) + "\n")
-    with open(CONF3_CONFIG) as f:
+    with open(config) as f:
         text = f.read()
     paths = {"noise_path": os.path.join(root, "musan"), "rir_path": os.path.join(root, "rirs"),
              "aug_dir": os.path.join(root, "aug")}
     for key, value in paths.items():
         lines = [ln for ln in text.splitlines() if ln.strip().startswith(f"{key}:")]
         if len(lines) != 1:
-            raise AssertionError(f"{CONF3_CONFIG} has {len(lines)} {key} lines")
+            raise AssertionError(f"{config} has {len(lines)} {key} lines")
         text = text.replace(lines[0], lines[0].split(":")[0] + f": '{value}'")
-    cfg = os.path.join(root, "conf-3-linear.yaml")
+    cfg = os.path.join(root, os.path.basename(config))
     with open(cfg, "w") as f:
         f.write(text)
     return cfg, utts
@@ -1947,7 +1992,8 @@ def phase_device_aug(K, card, host):
     want = {"flash_attn_fwd": 2 * layers * steps + layers * dev_steps,
             "flash_attn_bwd_dq": layers * steps, "flash_attn_bwd_dkv": layers * steps}
     launches = seen["launches"]
-    print(f"[device-aug] {card}: CLI --device_aug, XLS-R 300M bf16 remat 'attn', conf-3, "
+    print(f"[device-aug] {card}: CLI --device_aug, XLS-R 300M widths at {layers} layers bf16 "
+          f"remat 'attn', conf-3, "
           f"{steps} steps + {dev_steps} dev step: {seen['wall']:.2f}s wall, "
           f"{seen['per_step_ms']:.2f} ms/step after the first (host path "
           f"{host['per_step_ms']:.2f}), peak memory {seen['peak'] / 2**30:.3f} GiB "
@@ -2053,7 +2099,8 @@ def phase_remat(K, card):
 
 
 def phase_train_cli(K, card, tmp):
-    """The port's CLI training mode in-process at XLS-R 300M with conf-3
+    """The port's CLI training mode in-process at XLS-R 300M (``main`` cuts
+    the depth: ``cut_depth``) with conf-3
     verbatim (V = 11, trim 64000) on a database written here: 4 train steps
     of 2 anchor groups and 1 dev step, host augmentation in TrainLoader.
     Then last.ckpt is loaded into a fresh model, which must score a batch
@@ -2083,7 +2130,8 @@ def phase_train_cli(K, card, tmp):
     want = {"flash_attn_fwd": 2 * layers * steps + layers * dev_steps,
             "flash_attn_bwd_dq": layers * steps, "flash_attn_bwd_dkv": layers * steps}
     ends, per_step = seen["step_end"], seen["per_step_ms"]
-    print(f"[train-cli] {card}: CLI training, XLS-R 300M + LinearNLL bf16 remat 'attn', "
+    print(f"[train-cli] {card}: CLI training, XLS-R 300M widths at {layers} layers + "
+          f"LinearNLL bf16 remat 'attn', "
           f"conf-3 (V = 11, trim 64000), {steps} steps of 2 groups + {dev_steps} dev step: "
           f"{wall:.2f}s wall (model build, checkpoint writes included), "
           f"{per_step:.2f} ms/step after the first, peak memory {peak / 2**30:.3f} GiB")
@@ -2160,6 +2208,283 @@ def phase_train_cli(K, card, tmp):
           f"per step against the CLI's {per_step:.1f} ms per step")
     return launches, {"db": db, "config": cfg_path, "per_step_ms": per_step,
                       "group_ms": loader, "peak": peak}
+
+
+# The model zoo (AASIST with conf-aasist's published head, ResNet-18 at the
+# JAX defaults) at XLS-R 300M bf16: 2 train steps of 2 groups and 1 dev step
+# through the CLI, then scoring 16 eval clips of [16, 64600] from its
+# last.ckpt through --eval, --serve and the exported artifact.
+# int8_head: the head whose int8 artifact is written beside the fp one (its
+# buffers bit-equal to the fp artifact's); one head keeps the phase short
+ZOO = dict(train=4, dev=2, eval_utts=16, batch=16, seed=1234, int8_head="aasist")
+RESNET_MODEL = """model:
+  name: wav2vec2_resnet
+  flag_fix_ssl: false
+  contra_mode: 'all'
+  loss_type: 1
+  resnet: {resnet_type: '18', num_nodes: 3, enc_dim: 256, nclasses: 2}
+"""
+
+
+def _zoo_database(root):
+    """``_cli_database`` under conf-aasist.yaml (whose data section is
+    conf-3's) with 4 train and 2 dev anchors, a ResNet-18 YAML beside it
+    (the repository ships none: conf-aasist's with its model block
+    replaced), and 16 eval clips (every fourth a third of 64600 samples,
+    the zero-pad branch) in ``eval/`` and ``scp/test.lst``."""
+    from scl_deepfake_audio_detection_torch.utils.audio_io import save_wav
+
+    aasist, _ = _cli_database(root, AASIST_CONFIG, train=ZOO["train"], dev=ZOO["dev"])
+    with open(aasist) as f:
+        data = f.read().split("\ndata:", 1)[1]
+    resnet = os.path.join(root, "resnet-18.yaml")
+    with open(resnet, "w") as f:
+        f.write(RESNET_MODEL + "data:" + data)
+    rng = np.random.default_rng(ZOO["seed"])
+    utts = [f"eval{i:02d}.wav" for i in range(ZOO["eval_utts"])]
+    for i, u in enumerate(utts):
+        n = 64600 if i % 4 else 64600 // 3
+        save_wav(os.path.join(root, "eval", u), (0.1 * rng.normal(size=n)).astype(np.float32))
+    with open(os.path.join(root, "scp", "test.lst"), "w") as f:
+        f.write("\n".join(utts) + "\n")
+    return {"aasist": aasist, "resnet": resnet}, utts
+
+
+def _zoo_golden(K, kind, layers):
+    """The committed tiny golden of ``kind`` on the card, fp32 with TF32 off:
+    the ``tests/seeded_params.seeded_tree`` parameters and the golden's
+    running statistics, scored through the kernel and at impl='reference';
+    both within 1e-4 of the JAX package's scores, 2 launches (the tiny
+    encoder's layers) per kernel forward."""
+    from scl_deepfake_audio_detection_torch.models.params import load_jax_params
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.train import checkpoint as ckpt
+    from scl_deepfake_audio_detection_torch.train.engine import score_step
+    from scl_deepfake_audio_detection_torch.utils.registry import MODELS
+
+    spec = importlib.util.spec_from_file_location(
+        "seeded_params", os.path.join(ROOT, "tests", "seeded_params.py"))
+    seeded = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(seeded)
+    tree, meta = ckpt.load(os.path.join(GOLDEN_DIR, f"mini_{kind}.ckpt"))
+    with open(os.path.join(GOLDEN_DIR, f"mini_{kind}_scores.txt")) as f:
+        want = np.array([[float(v) for v in ln.split()[1:]] for ln in f], np.float64)
+    rng = np.random.default_rng(meta["wav_seed"])
+    n, t = meta["wav_shape"]
+    wav = [(0.1 * rng.normal(size=(n, t))).astype(np.float32)
+           for _ in range(meta["train_forwards"] + 1)][-1]
+    got, launches = {}, {}
+    for impl in ("auto", "reference"):
+        cfg = XLSRConfig.tiny(attention_impl=impl)
+        model = MODELS.get(meta["model"])(ssl=cfg, device="cuda")
+        load_jax_params(model, seeded.seeded_tree(model, meta["param_seed"]), tree["buffers"])
+        K.reset_launches()
+        got[impl] = score_step(model, wav).double().cpu().numpy()
+        torch.cuda.synchronize()
+        launches[impl] = dict(K.LAUNCHES)
+    err = {impl: float(np.abs(v - want).max()) for impl, v in got.items()}
+    expect = dict({name: 0 for name in K.KERNELS}, flash_attn_fwd=cfg.encoder_layers)
+    print(f"[zoo] golden {kind}: T={cfg.num_frames(t)} D={cfg.head_dim} fp32 on the card: max "
+          f"|score - golden| kernel {err['auto']:.3e}, impl='reference' "
+          f"{err['reference']:.3e} (tol {GOLDEN_ATOL:.0e}); kernel launches "
+          f"{launches['auto']}")
+    if max(err.values()) > GOLDEN_ATOL or launches["auto"] != expect:
+        raise AssertionError(f"the {kind} golden is not reproduced on the card")
+
+
+def _buffers_of(model):
+    return {n: b.detach().clone() for n, b in model.named_buffers()}
+
+
+def phase_zoo(K, card, tmp):
+    """AASIST (conf-aasist.yaml) and ResNet-18 at XLS-R 300M bf16 through
+    the port's CLI: 2 train steps and 1 dev step (48 / 24 / 24 launches a
+    step, 24 forwards a dev step), the running statistics finite and moved;
+    last.ckpt into a fresh model through load_train_state scores exactly as
+    the trained one; --eval from last.ckpt on 16 clips of [16, 64600] (24
+    launches); --serve on the same clips, its replies equal to --eval's cm1
+    to 6 decimals; --export_model (fp, and int8 for ZOO["int8_head"] with
+    its buffers bit-equal to the fp artifact's), --eval --from_export within
+    1e-3 of --eval; score_step's utt/s.  Then each committed tiny golden on
+    the card."""
+    from scl_deepfake_audio_detection_torch import cli
+    from scl_deepfake_audio_detection_torch.cli import serve as serve_mod
+    from scl_deepfake_audio_detection_torch.models.base import cast_matmul_params
+    from scl_deepfake_audio_detection_torch.models.params import load_jax_params
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.train import checkpoint as ckpt
+    from scl_deepfake_audio_detection_torch.train import engine as E
+    from scl_deepfake_audio_detection_torch.utils.config import load_config
+    from scl_deepfake_audio_detection_torch.utils.registry import MODELS
+
+    t_phase = time.perf_counter()
+    db = os.path.join(tmp, "db")
+    configs, utts = _zoo_database(db)
+    layers = XLSRConfig.xlsr_300m().encoder_layers
+    sb, seed = ZOO["batch"], ZOO["seed"]
+    steps, dev_steps = ZOO["train"] // 2, -(-ZOO["dev"] // 2)
+    forwards = math.ceil(len(utts) / sb)
+    fwd_only = {name: 0 for name in K.KERNELS}
+    by_path, stats = {}, {}
+
+    def run(label, argv):
+        K.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise AssertionError(f"{label} exited {rc}")
+        return time.perf_counter() - t0
+
+    def expect(label, launches, want):
+        if launches != want:
+            raise AssertionError(f"{label}: launched {launches}, expected {want}")
+        by_path[label] = dict(launches)
+
+    for kind in ("aasist", "resnet"):
+        cfg_path = configs[kind]
+        flags = ["--config", cfg_path, "--database_path", db, "--ssl_preset", "xlsr_300m",
+                 "--compute_dtype", "bfloat16", "--seed", str(seed), "--device", "cuda"]
+        # 1. two train steps through the CLI
+        out = os.path.join(tmp, f"out_{kind}")
+        seen = _observed_cli(K, flags + ["--batch_size", "2", "--num_epochs", "1",
+                                         "--out_dir", out])
+        expect(f"{kind}_train_cli", seen["launches"], {
+            "flash_attn_fwd": 2 * layers * steps + layers * dev_steps,
+            "flash_attn_bwd_dq": layers * steps, "flash_attn_bwd_dkv": layers * steps})
+        eng = seen["engine"]
+        moved = {n: b for n, b in _buffers_of(eng.model).items()}
+        fresh_cfg = load_config(cfg_path)
+        init = _buffers_of(MODELS.get(fresh_cfg.model.name).from_config(
+            fresh_cfg.model, ssl=XLSRConfig.xlsr_300m(), device="meta"))
+        finite = all(torch.isfinite(b).all().item() for b in moved.values())
+        # every statistic left its initial value (mean 0, var 1)
+        n_moved = sum(not torch.equal(b, torch.full_like(b, 0.0 if n.endswith(".mean") else 1.0))
+                      for n, b in moved.items())
+        stats[f"{kind}_cli_ms_per_step"] = seen["per_step_ms"]
+        stats[f"{kind}_train_peak_gib"] = seen["peak"] / 2**30
+        print(f"[zoo] {card}: {kind} training CLI, XLS-R 300M bf16 remat 'attn', conf-aasist's "
+              f"data (V = 11, trim 64000), {steps} steps of 2 groups + {dev_steps} dev step: "
+              f"{seen['wall']:.2f}s wall, {seen['per_step_ms']:.2f} ms/step after the first, "
+              f"peak memory {seen['peak'] / 2**30:.3f} GiB; launches {seen['launches']}; "
+              f"{len(moved)} running statistics ({len(init)} at init), finite {finite}, "
+              f"moved {n_moved}")
+        if not finite or n_moved != len(moved) or sorted(init) != sorted(moved):
+            raise AssertionError(f"{kind}: running statistics not finite or not moved")
+        run_dir = os.path.join(out, os.listdir(out)[0])
+        last = os.path.join(run_dir, "last.ckpt")
+        # 2. last.ckpt into a fresh model scores exactly as the trained one
+        ssl = XLSRConfig.xlsr_300m(compute_dtype="bfloat16", remat=True)
+        fresh = E.Engine(MODELS.get(fresh_cfg.model.name).from_config(
+            fresh_cfg.model, ssl=ssl, device="cuda", seed=99), eng.cfg)
+        fresh.init_state()
+        ckpt.load_train_state(last, fresh.model, fresh.optimizer)
+        wav = (0.1 * np.random.default_rng(3).normal(size=(4, 64600))).astype(np.float32)
+        same = torch.equal(E.score_step(eng.model, wav), E.score_step(fresh.model, wav))
+        same_buf = all(torch.equal(a, b) for a, b in zip(moved.values(),
+                                                         _buffers_of(fresh.model).values()))
+        print(f"[zoo] {kind}: last.ckpt ({os.path.getsize(last) / 2**30:.3f} GiB) into a "
+              f"fresh model: identical scores {same}, identical running statistics {same_buf}")
+        if not (same and same_buf):
+            raise AssertionError(f"{kind}: last.ckpt does not reproduce the trained model")
+        del eng, fresh, seen
+        torch.cuda.empty_cache()
+
+        # 3. --eval from last.ckpt, 16 clips
+        from_ckpt = flags + ["--model_path", last]
+        ev_path = os.path.join(tmp, f"eval_{kind}.txt")
+        wall = run(f"{kind} --eval", from_ckpt + [
+            "--eval", "--batch_size", str(sb), "--num_workers", "4", "--wire_dtype", "int16",
+            "--eval_output", ev_path])
+        expect(f"{kind}_eval", dict(K.LAUNCHES), dict(fwd_only, flash_attn_fwd=layers * forwards))
+        rows = {r[0]: (float(r[1]), float(r[2])) for r in _read_rows(ev_path)}
+        logits = np.array([rows[u] for u in utts])
+        print(f"[zoo] {kind}: --eval from last.ckpt, {len(utts)} clips of 64600 in {wall:.2f}s "
+              f"wall (model and checkpoint load included), peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, launches {dict(K.LAUNCHES)}"
+              f"; raw logits in [{logits.min():.4f}, {logits.max():.4f}]")
+        if logits.shape != (len(utts), 2) or not np.isfinite(logits).all():
+            raise AssertionError(f"{kind}: bad --eval rows {logits.shape}")
+
+        # 4. --serve on a pipe: replies equal --eval's cm1 to 6 decimals
+        paths = [os.path.join(db, "eval", u) for u in utts]
+        lines = [f"{u}\t{p}" for u, p in zip(utts, paths)]
+        replies, wall, fwd, launches, window = _stdin_serve(
+            K, cli, serve_mod, from_ckpt + ["--serve", "--serve_batch", str(sb)], lines)
+        expect(f"{kind}_serve", launches, dict(fwd_only, flash_attn_fwd=layers * fwd))
+        equal = [v for _, v in replies] == [f"{rows[u][1]:.6f}" for u in utts]
+        stats[f"{kind}_serve_utt_s"] = len(lines) / window if window else float("nan")
+        print(f"[zoo] {card}: {kind} --serve: {len(lines)} requests in {fwd} forwards of "
+              f"[{sb}, 64600], {window:.3f}s from the first forward to the last "
+              f"({stats[f'{kind}_serve_utt_s']:.2f} utt/s), {wall:.2f}s wall; replies equal "
+              f"--eval's cm1 to 6 decimals: {equal}")
+        if not equal or fwd != forwards:
+            raise AssertionError(f"{kind}: --serve replies differ from --eval")
+
+        # 5. the artifact: fp (and int8 for one head), --eval --from_export
+        arts = {q: os.path.join(tmp, f"art_{kind}_{q}")
+                for q in (("fp", "int8") if kind == ZOO["int8_head"] else ("fp",))}
+        for q, path in arts.items():
+            wall = run(f"{kind} --export_model {q}", from_ckpt + ["--export_model", path] + (
+                ["--export_quant", "int8"] if q == "int8" else []))
+            print(f"[zoo] {kind}: --export_model ({q}) in {wall:.2f}s (model and checkpoint "
+                  f"load included)")
+        with np.load(os.path.join(arts["fp"], "weights.npz")) as a:
+            bufs = [k for k in a.files if k.startswith("b")]
+            bit_equal, n_q = bool(bufs), 0
+            if "int8" in arts:
+                with np.load(os.path.join(arts["int8"], "weights.npz")) as b:
+                    bit_equal = bit_equal and all(a[k].tobytes() == b[k].tobytes()
+                                                  for k in bufs)
+                    n_q = sum(k.startswith("qs") for k in b.files)
+        art_path = os.path.join(tmp, f"eval_{kind}_art.txt")
+        wall = run(f"{kind} --eval --from_export", [
+            "--from_export", arts["fp"], "--device", "cuda", "--eval", "--config", cfg_path,
+            "--database_path", db, "--batch_size", str(sb), "--num_workers", "4",
+            "--eval_output", art_path])
+        expect(f"{kind}_eval_from_export", dict(K.LAUNCHES),
+               dict(fwd_only, flash_attn_fwd=layers * forwards))
+        art_rows = {r[0]: float(r[2]) for r in _read_rows(art_path)}
+        art_err = max(abs(art_rows[u] - rows[u][1]) for u in utts)
+        stats[f"{kind}_export_err"] = art_err
+        int8 = (f"bit-equal in the int8 artifact {bit_equal} ({n_q} leaves int8)"
+                if "int8" in arts else "no int8 artifact for this head")
+        print(f"[zoo] {kind}: {len(bufs)} buffer leaves, {int8}; --eval --from_export in "
+              f"{wall:.2f}s, max "
+              f"|d cm1| vs --eval {art_err:.3e} (tol 1e-3), launches {dict(K.LAUNCHES)}")
+        if not bit_equal or art_err > 1e-3 or sorted(art_rows) != sorted(utts):
+            raise AssertionError(f"{kind}: the artifact disagrees")
+
+        # 6. in-process: utt/s of score_step on a placed [16, 64600] batch
+        cfg = load_config(cfg_path)
+        model = MODELS.get(cfg.model.name).from_config(
+            cfg.model, ssl=XLSRConfig.xlsr_300m(compute_dtype="bfloat16"), device="cuda",
+            seed=seed)
+        ckpt_tree, _ = ckpt.load(last)
+        load_jax_params(model, ckpt_tree["params"], ckpt_tree["buffers"])
+        del ckpt_tree
+        cast_matmul_params(model.eval(), torch.bfloat16)
+        wav = 0.1 * torch.randn(sb, 64600, device="cuda",
+                                generator=torch.Generator(device="cuda").manual_seed(9))
+        torch.cuda.reset_peak_memory_stats()
+        ms = _best_ms(lambda: E.score_step(model, wav), calls=2, iters=5)
+        stats[f"{kind}_eval_utt_s"] = sb / ms * 1e3
+        stats[f"{kind}_eval_ms"] = ms
+        stats[f"{kind}_eval_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        print(f"[zoo] {card}: {kind} score_step [{sb}, 64600] bf16 on the card: {ms:.3f} ms a "
+              f"forward ({stats[f'{kind}_eval_utt_s']:.2f} utt/s), peak memory "
+              f"{stats[f'{kind}_eval_peak_gib']:.3f} GiB")
+        del model
+        torch.cuda.empty_cache()
+
+    for kind in ("aasist", "resnet"):
+        _zoo_golden(K, kind, layers)
+    total = {name: sum(v[name] for k, v in by_path.items()) for name in K.KERNELS}
+    print(f"[zoo] phase in {time.perf_counter() - t_phase:.2f}s; launches {total}")
+    return by_path, total, stats
+
 
 
 def _bound(nbytes, flops):
@@ -2262,6 +2587,13 @@ def main() -> int:
     card = card_line()
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(name):
+        now = time.perf_counter()
+        print(f"[timeline] {name}: {now - laps[-1]:.1f}s (at {now - t_start:.1f}s)")
+        laps.append(now)
+
     KB = None
     if args.before:
         KB = load_before(args.before)
@@ -2272,51 +2604,75 @@ def main() -> int:
         print(f"[build] kernels of {args.before} built for ms_before")
     else:
         phase_build(K)
+    lap("build")
     phase_kernel_vs_plain(K, A)
     phase_backward_vs_plain(K, A)
     phase_autograd(K, A)
     phase_memory(A)
+    lap("kernels_vs_plain")
     phase_golden(K)
     phase_golden_train(K)
+    lap("goldens")
     with tempfile.TemporaryDirectory() as tmp:
         eval_launches = phase_main_path(K, tmp)
+    lap("main_path")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         modes_launches = phase_eval_modes(K, card, tmp)
+    lap("eval_modes")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
         serve_launches, serve_stats = phase_serve(K, card, tmp)
+    lap("serve")
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
+    print(f"[depth] the export, reference-checkpoint, training-CLI and --device_aug "
+          f"phases: XLS-R 300M widths at {EARLY_LAYERS} encoder layers (phase_zoo drives "
+          f"the CLI's training and export at all 24)")
+    with tempfile.TemporaryDirectory() as tmp, cut_depth():
         export_launches, export_stats = phase_export(K, card, tmp)
+    lap("export")
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, cut_depth():
         refckpt = phase_reference_ckpt(K, card, tmp)
+    lap("reference_ckpt")
     torch.cuda.empty_cache()
     conv = phase_conv_impls(K, card)
+    lap("conv_impls")
     torch.cuda.empty_cache()
     # the forward at bucketed scoring's longest batch, past T = 256
     modes_fwd = _fwd_entry(K, A, BUCKET_SHAPE, card, torch.Generator(device="cuda").manual_seed(6))
     eval_fwd = phase_times(K, A, card, KB)
+    lap("times")
     torch.cuda.empty_cache()
     launches = phase_train_main_path(K, card)
+    lap("train_main_path")
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, cut_depth():
         cli_launches, host = phase_train_cli(K, card, tmp)
+        lap("train_cli")
         torch.cuda.empty_cache()
         aug_launches = phase_device_aug(K, card, host)
+    lap("device_aug")
     torch.cuda.empty_cache()
     remat = phase_remat(K, card)
+    lap("remat")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        zoo_launches, zoo, zoo_stats = phase_zoo(K, card, tmp)
+    lap("zoo")
+    torch.cuda.empty_cache()
     times = phase_backward_times(K, A, card, KB)
+    lap("backward_times")
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f}s; launches on the "
           f"eval main path {eval_launches}, in the eval modes {modes_launches}, serving "
           f"{serve_launches}, from the exported scorer {export_launches}, on the "
           f"training main path {launches}, through the training CLI {cli_launches}, with "
           f"--device_aug {aug_launches}; remat per step "
-          f"{ {k: v['launches'] for k, v in remat.items()} }")
-    # Each entry's launches belong to this slice's main path, the training
-    # CLI with --device_aug; its times to that path's shape (the fit run's,
-    # [22, 16, 199, 64]).
+          f"{ {k: v['launches'] for k, v in remat.items()} }; the model zoo {zoo}")
+    # Each entry's launches belong to this slice's main path, the model zoo
+    # (AASIST and ResNet-18 through the CLI: training, --eval, --serve and
+    # --eval --from_export); its times to the training shape of XLS-R 300M
+    # that the zoo's train steps share ([22, 16, 199, 64]).
     # The other paths' launches sit beside them, and the forward's
     # eval-shape times under "eval".
     kernels = []
@@ -2326,8 +2682,8 @@ def main() -> int:
             "route": "cuda",
             "source": f"scl_deepfake_audio_detection_torch/csrc/{K.SOURCES[name]}",
             "replaces": REPLACES[name],
-            "path": "train_cli_device_aug",
-            "launches": aug_launches[name],
+            "path": "zoo",
+            "launches": zoo[name],
             "launches_by_path": {"eval": eval_launches[name],
                                  "eval_modes": modes_launches[name],
                                  "serve": serve_launches["serve"][name],
@@ -2337,10 +2693,12 @@ def main() -> int:
                                  "train": launches[name], "train_cli": cli_launches[name],
                                  "train_cli_device_aug": aug_launches[name],
                                  **{f"remat_{k}_per_step": v["launches"][name]
-                                    for k, v in remat.items()}},
+                                    for k, v in remat.items()},
+                                 **{f"zoo_{k}": v[name] for k, v in zoo_launches.items()}},
             **times[name],
         }
         if name == "flash_attn_fwd":
+            entry["zoo"] = zoo_stats
             entry["eval"] = {"launches": eval_launches[name], **eval_fwd}
             entry["eval_modes"] = {"launches": modes_launches[name], **modes_fwd}
             entry["serve"] = {"launches": serve_launches["serve"][name],

@@ -116,7 +116,10 @@ def load_model_state(ctx: RunContext) -> None:
         _load_reference_pth(ctx)
     else:
         tree, extra = ckpt.load(args.model_path)
-        load_jax_params(ctx.model, tree["params"] if "params" in tree else tree)
+        if "params" in tree:  # a params(+buffers) checkpoint or a train state
+            load_jax_params(ctx.model, tree["params"], tree.get("buffers"))
+        else:
+            load_jax_params(ctx.model, tree)
         if isinstance(tree, dict) and "opt_state_leaves" in tree:
             ctx.resume_path = args.model_path  # a full train state of either package
             ctx.resume_epoch = int(extra.get("epoch", -1)) + 1

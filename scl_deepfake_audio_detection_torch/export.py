@@ -8,10 +8,12 @@ Counterpart of ``scl_deepfake_audio_detection_tpu/export.py``.
     <dir>/scorer.pt2    the ExportedProgram:
                         fn(param_leaves, buffer_leaves, wav[b, cut] f32)
                         -> scores [b, C] f32
-    <dir>/weights.npz   the leaves (p00000.., b00000..) in the JAX tree's
-                        layout and ``jax.tree_util`` order, the keys, dtypes
-                        and int8 scheme of the JAX artifact's; bfloat16
-                        rides as a uint16 view with its name in meta.json
+    <dir>/weights.npz   the leaves (p00000.., b00000..) of the JAX params
+                        and buffers trees, in their layout and
+                        ``jax.tree_util`` order, the keys, dtypes and int8
+                        scheme of the JAX artifact's (the batch-norm
+                        statistics, b*, never quantized); bfloat16 rides as
+                        a uint16 view with its name in meta.json
     <dir>/meta.json     the JAX artifact's keys, ``torch_version`` in place
                         of ``jax_version``
 
@@ -98,15 +100,6 @@ def _dequantize_int8(q: np.ndarray, scale: np.ndarray, dtype_name: str) -> torch
 # export side (imports the model machinery; the loader below does not)
 
 
-def _torch_layout(path: str, t: torch.Tensor) -> torch.Tensor:
-    """A JAX-layout leaf (one layer's, for a stacked leaf) in the port's
-    layout: linear ``w`` [in, out] -> [out, in], conv ``w`` [K, Cin/g,
-    Cout] -> [Cout, Cin/g, K]."""
-    if path.endswith("w"):
-        return t.t() if t.dim() == 2 else t.permute(2, 1, 0)
-    return t
-
-
 class _Scorer(torch.nn.Module):
     """(param leaves, buffer leaves, wav) -> eval score columns, with the
     model's parameters and buffers taken from the leaves.  The model is
@@ -120,16 +113,16 @@ class _Scorer(torch.nn.Module):
 
     def forward(self, p_leaves, b_leaves, wav):
         from scl_deepfake_audio_detection_torch.models.base import eval_scores
-        from scl_deepfake_audio_detection_torch.models.params import is_stacked
+        from scl_deepfake_audio_detection_torch.models.params import is_stacked, torch_layout
 
         model = self._held[0]
         state: Dict[str, torch.Tensor] = dict(zip(self._buffer_names, b_leaves))
         for (path, names), leaf in zip(self._leaf_map, p_leaves):
             if is_stacked(path):
                 for i, name in enumerate(names):
-                    state[name] = _torch_layout(path, leaf[i])
+                    state[name] = torch_layout(path, leaf[i])
             else:
-                state[names[0]] = _torch_layout(path, leaf)
+                state[names[0]] = torch_layout(path, leaf)
         out = torch.func.functional_call(model, state, (wav,), {"train": False}, strict=True)
         return eval_scores(model, out)
 
@@ -156,8 +149,11 @@ def export_scorer(model, out_dir: str, *, cut: int = 64600,
     scores move by the weights' rounding only (``--verify_export`` bounds
     it).  Returns the metadata written to ``meta.json``."""
     from scl_deepfake_audio_detection_torch import __version__
-    from scl_deepfake_audio_detection_torch.models.base import model_buffers
-    from scl_deepfake_audio_detection_torch.models.params import jax_leaf_map, to_jax
+    from scl_deepfake_audio_detection_torch.models.params import (
+        buffer_leaf_map,
+        jax_leaf_map,
+        to_jax,
+    )
     from scl_deepfake_audio_detection_torch.utils.device import torch_dtype
     from scl_deepfake_audio_detection_torch.utils.tree import keyed_leaves
 
@@ -170,15 +166,18 @@ def export_scorer(model, out_dir: str, *, cut: int = 64600,
     p_leaves = []
     for (path, _), (_, leaf) in zip(leaf_map, keyed_leaves(to_jax(model, host=False))):
         leaf = leaf.detach()
-        if cdtype is not None and path.endswith("w") and leaf.is_floating_point():
+        if cdtype is not None and path.rsplit("//", 1)[-1] == "w" and leaf.is_floating_point():
             leaf = leaf.to(cdtype)
         p_leaves.append(leaf.contiguous())
-    buffers = model_buffers(model)
-    b_leaves = [buffers[k].detach() for k in sorted(buffers)]
+    # the batch-norm statistics in the JAX buffers tree's leaf order
+    b_map = buffer_leaf_map(model)
+    b_leaves = [model.get_buffer(name).detach() for _, name in b_map]
 
-    scorer = _Scorer(model, leaf_map, sorted(buffers))
+    scorer = _Scorer(model, leaf_map, [name for _, name in b_map])
     wav = torch.zeros(2, cut, device=device)
-    batch = torch.export.Dim("b", min=1, max=65536)
+    # 65535: on the card the AASIST program's trace guards the batch at a
+    # CUDA grid limit of 65535, which every program keeps as its bound
+    batch = torch.export.Dim("b", min=1, max=65535)
     with torch.no_grad():
         program = torch.export.export(
             scorer, (tuple(p_leaves), tuple(b_leaves), wav),

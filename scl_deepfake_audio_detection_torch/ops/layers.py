@@ -9,12 +9,20 @@ the JAX [in, out] and [K, Cin/groups, Cout] leaves once, at load).
   returns fp32 and adds the bias in fp32; its backward is explicit
   (``_Matmul``), with the JAX package's plain and fast rules;
 - ``layer_norm`` computes in fp32 and returns the input dtype;
-- ``conv1d`` returns the operand dtype;
+- ``conv1d`` and ``conv2d`` return the operand dtype.  ``conv2d`` keeps
+  torch's layout, x [B, C, H, W] and w [Cout, Cin, KH, KW], where the JAX
+  package's is NHWC with an HWIO kernel; ``models/params`` converts the
+  kernel at load, and the models put the axes where the JAX models have
+  them;
+- ``max_pool2d`` keeps the floor-division output size (VALID);
+- ``batch_norm`` computes in fp32 and returns the input dtype; in training
+  it normalises with the batch's biased variance and moves the running
+  statistics towards its mean and unbiased variance;
 - ``gelu`` is exact (erf) unless ``approximate`` selects the tanh form.
 
 While ``torch.export`` records a program (``torch.compiler.is_exporting``),
-the products whose formulation depends on the device (``linear``'s and
-``conv1d``'s) go through the ``scl_port`` ops of ``ops/custom_ops``, which
+the products whose formulation depends on the device (``linear``'s,
+``conv1d``'s and ``conv2d``'s) go through the ``scl_port`` ops of ``ops/custom_ops``, which
 pick it when the program runs, on the CPU or on the card; eager calls
 take the direct route, which costs no dispatch of an op.
 """
@@ -170,6 +178,74 @@ def _conv1d(x, w, b, stride, padding, groups, dilation) -> torch.Tensor:
     else:
         y = F.conv1d(xc, w, bias, stride=stride, groups=groups, dilation=dilation)
     return y.transpose(1, 2)
+
+
+def _pair(v) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else (int(v[0]), int(v[1]))
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
+           stride=(1, 1), padding: Padding = "VALID",
+           compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x [B, Cin, H, W], w [Cout, Cin, KH, KW] -> [B, Cout, H', W'] in the
+    operand dtype.  ``padding`` is 'VALID' or [(top, bottom), (left,
+    right)]; the bias is added in the operand dtype."""
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        w = w.to(compute_dtype)
+    sh, sw = _pair(stride)
+    (pt, pb), (pl, pr) = ((0, 0), (0, 0)) if padding == "VALID" else padding
+    if torch.compiler.is_exporting():
+        return torch.ops.scl_port.conv2d(x, w, b, sh, sw, pt, pb, pl, pr)
+    return _conv2d(x, w, b, (sh, sw), (pt, pb, pl, pr))
+
+
+def _conv2d(x, w, b, stride, pads) -> torch.Tensor:
+    """``conv2d`` on operands already in one dtype; ``pads`` is (top,
+    bottom, left, right)."""
+    pt, pb, pl, pr = pads
+    if pt == pb and pl == pr:
+        pad = (pt, pl)
+    else:
+        x, pad = F.pad(x, (pl, pr, pt, pb)), (0, 0)
+    bias = None if b is None else b.to(x.dtype)
+    if not x.is_cuda and x.dtype != torch.float32:
+        # as conv1d: the CPU computes low-precision convs in fp32, rounds once
+        return F.conv2d(x.float(), w.float(), None if bias is None else bias.float(),
+                        stride=stride, padding=pad).to(x.dtype)
+    return F.conv2d(x, w, bias, stride=stride, padding=pad)
+
+
+def max_pool2d(x: torch.Tensor, window, stride=None) -> torch.Tensor:
+    """Max pool over the last two axes of [B, C, H, W]; the stride defaults
+    to the window, the output size is floor-divided (VALID)."""
+    window = _pair(window)
+    return F.max_pool2d(x, window, window if stride is None else _pair(stride))
+
+
+def selu(x: torch.Tensor) -> torch.Tensor:
+    return F.selu(x)
+
+
+def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               mean: torch.Tensor, var: torch.Tensor, train: bool,
+               eps: float = 1e-5, momentum: float = 0.1) -> torch.Tensor:
+    """Batch norm of x [N, C, ...] over every axis but the channel axis 1,
+    computed in fp32 (or x's wider dtype) and returned in x's dtype, by
+    torch's fused batch norm.
+
+    Training normalises with the batch's mean and biased variance and
+    moves the fp32 running ``mean`` and ``var`` in place (no gradient) to
+    ``(1 - momentum) * old + momentum * batch``, with the unbiased variance
+    n / (n - 1), the JAX package's n / max(n - 1, 1) for every n > 1; a
+    batch of one value a channel is refused (ValueError), where the JAX
+    package moves the variance towards 0: the training views are never
+    fewer than 2.  Eval normalises with the running statistics and leaves
+    them as they are."""
+    acc = torch.promote_types(x.dtype, torch.float32)
+    y = F.batch_norm(x.to(acc), mean, var, scale.to(acc), bias.to(acc), training=train,
+                     momentum=momentum, eps=eps)
+    return y.to(x.dtype)
 
 
 def _size(leaf) -> int:

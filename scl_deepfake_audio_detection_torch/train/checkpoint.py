@@ -9,6 +9,8 @@ beside it; older files keep that JSON only in the sidecar.  (Format of
 A train state is the JAX package's, so each package resumes the other's:
 
 - ``params``: the JAX tree names and layouts (``models/params.to_jax``);
+- ``buffers``: the batch-norm running statistics in the JAX buffers tree
+  (``models/params.buffers_to_jax``), for a model that has them;
 - ``opt_state_leaves``: optax's state leaves in its own order, ``{"0": ...,
   "1": ...}``, for the chains ``train/optim.make_optimizer`` builds there
   (``inject_hyperparams(adamw)``, under ``clip_by_global_norm`` and/or
@@ -42,11 +44,13 @@ import numpy as np
 import torch
 
 from scl_deepfake_audio_detection_torch.models.params import (
+    buffers_to_jax,
     is_stacked,
     jax_layout,
     jax_leaf_map,
     load_jax_params,
     to_jax,
+    torch_layout,
 )
 from scl_deepfake_audio_detection_torch.utils.tree import flatten, keyed_leaves, unflatten
 
@@ -244,7 +248,7 @@ def unpack_opt_leaves(leaves, model: torch.nn.Module, optimizer) -> None:
             leaf = np.asarray(leaf)
             layers = list(leaf) if is_stacked(path) else [leaf]
             for n, a in zip(names_, layers):
-                arrays[f"{prefix}//{n}"] = jax_layout(path, a)
+                arrays[f"{prefix}//{n}"] = torch_layout(path, a)
 
     per_param("exp_avg", leaves[8:8 + n_p])
     per_param("exp_avg_sq", leaves[8 + n_p:8 + 2 * n_p])
@@ -258,6 +262,7 @@ def save_train_state(path: str, model: torch.nn.Module, optimizer, epoch: int,
                      seed: int, best: float, writer: Optional[AsyncWriter] = None,
                      es_counter: int = 0, es_metric: str = "acc") -> None:
     """Everything a resume needs, in the JAX package's layout: parameters,
+    the batch-norm statistics (``buffers``, where the model has them),
     optax's optimizer leaves, the ``rng`` leaf (the resumed JAX state's, or
     ``seed``'s key), epoch, the run's seed, the early-stop watermark
     ``best``, its patience counter and which metric it tracks.  The host
@@ -265,6 +270,9 @@ def save_train_state(path: str, model: torch.nn.Module, optimizer, epoch: int,
     rng = optimizer.rng_key_data
     state = {"params": to_jax(model), "opt_state_leaves": pack_opt_leaves(model, optimizer),
              "rng": seed_key_data(seed) if rng is None else rng}
+    buffers = buffers_to_jax(model)
+    if buffers:
+        state["buffers"] = buffers
     flat = {k: _host(v) for k, v in flatten(state).items()}
     extra = {"epoch": int(epoch), "best": float(best), "es_counter": int(es_counter),
              "es_metric": str(es_metric), "seed": int(seed)}
@@ -275,11 +283,11 @@ def save_train_state(path: str, model: torch.nn.Module, optimizer, epoch: int,
 
 
 def load_train_state(path: str, model: torch.nn.Module, optimizer):
-    """Load a train state of either package into ``model`` and
-    ``optimizer``, which keeps its ``rng`` leaf for the next save.  Returns
-    (epoch, best, extra)."""
+    """Load a train state of either package into ``model`` (parameters and
+    batch-norm statistics) and ``optimizer``, which keeps its ``rng`` leaf
+    for the next save.  Returns (epoch, best, extra)."""
     tree, extra = load(path)
-    load_jax_params(model, tree["params"])
+    load_jax_params(model, tree["params"], tree.get("buffers"))
     unpack_opt_leaves(tree["opt_state_leaves"], model, optimizer)
     optimizer.rng_key_data = np.asarray(tree["rng"])
     return int(extra["epoch"]), float(extra["best"]), extra

@@ -9,10 +9,13 @@ and takes one AdamW step.  Per-step metrics stay on the device;
 epochs as the reference does (``main.py:397-423``): per-epoch cyclic LR,
 early stop on dev accuracy (or dev EER), checkpoints on a new best.
 
-The engine owns the model's parameters and the optimizer state, on the
-device the model was built on (the card unless the caller asked for the
-CPU).  Dropout draws come from a ``torch.Generator`` seeded from
-(``cfg.seed``, epoch, step), so a run is reproducible on one device type.
+The engine owns the model's parameters, its batch-norm statistics and the
+optimizer state, on the device the model was built on (the card unless the
+caller asked for the CPU).  A train step's one forward over the G*V views
+normalises with their statistics and moves the running ones once (the JAX
+package's sync-BN); eval and scoring read them and leave them.  Dropout
+draws come from a ``torch.Generator`` seeded from (``cfg.seed``, epoch,
+step), so a run is reproducible on one device type.
 """
 
 from __future__ import annotations
@@ -132,12 +135,13 @@ class Engine:
         self.optimizer = None
 
     # ----------------------------------------------------------- state setup
-    def init_state(self, params=None):
-        """Optionally load a JAX parameter tree (numpy leaves) into the model
-        and make the optimizer (learning rate 0 until ``set_learning_rate``).
-        Returns (model, optimizer)."""
+    def init_state(self, params=None, buffers=None):
+        """Optionally load a JAX parameter tree (numpy leaves), and its
+        batch-norm buffers tree, into the model and make the optimizer
+        (learning rate 0 until ``set_learning_rate``).  Returns (model,
+        optimizer)."""
         if params is not None:
-            load_jax_params(self.model, params)
+            load_jax_params(self.model, params, buffers)
         self.optimizer = make_optimizer(
             self.model.named_parameters(), self.cfg.weight_decay,
             grad_clip_norm=self.cfg.grad_clip_norm,

@@ -59,10 +59,15 @@ class RawBoostConfig:
 
 @dataclass
 class ModelConfig:
+    """``model:`` section.  Keys other than these four land in ``extra``
+    (the ``aasist:`` and ``resnet:`` blocks), as the JAX package keeps them;
+    the models' ``from_config`` read their block from there."""
+
     name: str = "xlsr_linear_nll"
     flag_fix_ssl: bool = False
     contra_mode: str = "all"
     loss_type: int = 1
+    extra: Dict[str, Any] = field(default_factory=dict)
 
 
 @dataclass
@@ -129,6 +134,8 @@ def load_config(path: str) -> Config:
         flag_fix_ssl=bool(m.get("flag_fix_ssl", False)),
         contra_mode=m.get("contra_mode", "all"),
         loss_type=int(m.get("loss_type", 1)),
+        extra={k: v for k, v in m.items()
+               if k not in ("name", "flag_fix_ssl", "contra_mode", "loss_type")},
     )
     d = raw.get("data") or {}
     data = DataConfig(name=d.get("name", "eval_only"), kwargs=dict(d.get("kwargs") or {}))

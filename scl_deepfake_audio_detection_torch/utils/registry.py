@@ -52,20 +52,21 @@ class Registry:
 
 
 MODELS = Registry("model", not_ported={
-    n: "Slice G" for n in ("xlsr_aasist", "wav2vec2_aasist", "xlsr_resnet",
-                           "wav2vec2_resnet", "wav2vec2_resnet_nll", "xlsr_resnet_nll",
-                           "xlsr_btse", "wav2vec2_btse")})
+    n: "Slice G2" for n in ("xlsr_btse", "wav2vec2_btse")})
 DATASETS = Registry("dataset")
 AUGMENTATIONS = Registry("augmentation")
 
 _POPULATORS = {
-    "model": "scl_deepfake_audio_detection_torch.models.linear_nll",
-    "dataset": "scl_deepfake_audio_detection_torch.data.datasets",
-    "augmentation": "scl_deepfake_audio_detection_torch.data.augment_registry",
+    "model": ("scl_deepfake_audio_detection_torch.models.linear_nll",
+              "scl_deepfake_audio_detection_torch.models.aasist",
+              "scl_deepfake_audio_detection_torch.models.resnet"),
+    "dataset": ("scl_deepfake_audio_detection_torch.data.datasets",),
+    "augmentation": ("scl_deepfake_audio_detection_torch.data.augment_registry",),
 }
 
 
 def _populate(kind: str) -> None:
-    """Import the module whose import registers ``kind`` items; its import
-    errors propagate."""
-    importlib.import_module(_POPULATORS[kind])
+    """Import the modules whose import registers ``kind`` items; their
+    import errors propagate."""
+    for mod in _POPULATORS[kind]:
+        importlib.import_module(mod)

@@ -97,11 +97,18 @@ def test_augmentation_names_and_aliases_equal_jax():
 
 
 def test_models_registry_has_linear_nll_and_refuses_the_rest():
+    """(The name is from when only LinearNLL resolved.)  LinearNLL, AASIST
+    and ResNet resolve to the port's classes; BTSE refuses (Slice G2)."""
+    from scl_deepfake_audio_detection_torch.models.aasist import XLSRAasist
     from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
+    from scl_deepfake_audio_detection_torch.models.resnet import XLSRResNet
 
     assert MODELS.get("xlsr_linear_nll") is LinearNLL
     assert MODELS.get("wav2vec2_linear_nll") is LinearNLL
-    for name in ("xlsr_aasist", "wav2vec2_resnet", "xlsr_btse"):
+    assert MODELS.get("xlsr_aasist") is MODELS.get("wav2vec2_aasist") is XLSRAasist
+    for name in ("xlsr_resnet", "wav2vec2_resnet", "wav2vec2_resnet_nll", "xlsr_resnet_nll"):
+        assert MODELS.get(name) is XLSRResNet, name
+    for name in ("xlsr_btse", "wav2vec2_btse"):
         with pytest.raises(NotImplementedError, match="not ported yet.*Slice G"):
             MODELS.get(name)
     with pytest.raises(KeyError, match="unknown model"):

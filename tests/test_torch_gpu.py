@@ -428,3 +428,76 @@ def test_exported_scorer_launches_the_flash_kernel_on_the_card(tmp_path):
     assert _kernels.LAUNCHES["flash_attn_fwd"] == cfg.encoder_layers
     want = load_scorer(str(tmp_path), device="cpu").score(wav)
     np.testing.assert_allclose(got, want, atol=5e-2, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["aasist", "resnet"])
+def test_zoo_goldens_on_the_card(kind):
+    """The committed tiny AASIST and ResNet goldens through the kernel, fp32:
+    within 1e-4 of the JAX package's scores, 2 launches (layers) a forward."""
+    _need_card()
+    from scl_deepfake_audio_detection_torch.models.params import load_jax_params
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.train import checkpoint as ckpt
+    from scl_deepfake_audio_detection_torch.train.engine import score_step
+    from scl_deepfake_audio_detection_torch.utils.registry import MODELS
+    from seeded_params import seeded_tree
+
+    golden = os.path.join(REPO, "tests", "golden")
+    tree, meta = ckpt.load(os.path.join(golden, f"mini_{kind}.ckpt"))
+    want = np.array([[float(v) for v in ln.split()[1:]]
+                     for ln in open(os.path.join(golden, f"mini_{kind}_scores.txt"))])
+    rng = np.random.default_rng(meta["wav_seed"])
+    wav = [(0.1 * rng.normal(size=tuple(meta["wav_shape"]))).astype(np.float32)
+           for _ in range(meta["train_forwards"] + 1)][-1]
+    model = MODELS.get(meta["model"])(ssl=XLSRConfig.tiny(), device="cuda")
+    load_jax_params(model, seeded_tree(model, meta["param_seed"]), tree["buffers"])
+    _kernels.reset_launches()
+    got = score_step(model, wav).double().cpu().numpy()
+    assert _kernels.LAUNCHES["flash_attn_fwd"] == 2
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["aasist", "resnet"])
+def test_zoo_train_steps_on_the_card_move_the_statistics_once(kind):
+    """bf16 train steps of the tiny zoo models under every remat policy:
+    every kernel launched, the same running statistics under each policy
+    (the head is outside the recomputed layers), eval leaves them."""
+    _need_card()
+    from scl_deepfake_audio_detection_torch.models.params import buffers_to_jax
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.train.engine import Engine
+    from scl_deepfake_audio_detection_torch.utils.config import TrainConfig
+    from scl_deepfake_audio_detection_torch.utils.registry import MODELS
+
+    rng = np.random.default_rng(0)
+    labels = np.tile(np.array([1.0] * 5 + [0.0] * 6, np.float32), (2, 1))
+    batch = {"wav": (0.1 * rng.normal(size=(2, 11, 8000))).astype(np.float32),
+             "labels": labels}
+    stats = {}
+    for policy in ("attn", "attn_ffn", "dots", "full"):
+        ssl = XLSRConfig.tiny(compute_dtype="bfloat16", remat=True, remat_policy=policy)
+        eng = Engine(MODELS.get(f"xlsr_{kind}")(ssl=ssl, device="cuda", seed=3), TrainConfig())
+        eng.init_state()
+        _kernels.reset_launches()
+        metrics = eng.train_step(eng.place_batch(batch), eng.step_generator(0, 0))
+        assert all(np.isfinite(float(v)) for v in metrics.values())
+        assert _kernels.LAUNCHES == {"flash_attn_fwd": 4, "flash_attn_bwd_dq": 2,
+                                     "flash_attn_bwd_dkv": 2}, policy
+        stats[policy] = buffers_to_jax(eng.model)
+        eng.eval_step(eng.place_batch(batch))
+        after = buffers_to_jax(eng.model)
+        for a, b in zip(_leaves(after), _leaves(stats[policy])):
+            np.testing.assert_array_equal(a, b)
+    for policy in ("attn_ffn", "dots", "full"):
+        for a, b in zip(_leaves(stats[policy]), _leaves(stats["attn"])):
+            np.testing.assert_array_equal(a, b, err_msg=policy)
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]

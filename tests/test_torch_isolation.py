@@ -48,6 +48,12 @@ def test_the_sweep_holds_the_conversion_and_artifact_modules():
         assert f"{port.__name__}.{m}" in mods, m
 
 
+def test_the_sweep_holds_the_zoo_modules():
+    mods = set(_port_modules())
+    for m in ("models.aasist", "models.resnet", "ops.graph"):
+        assert f"{port.__name__}.{m}" in mods, m
+
+
 def test_importing_the_kernels_module_builds_nothing():
     code = (
         "from scl_deepfake_audio_detection_torch.ops import _kernels as K\n"

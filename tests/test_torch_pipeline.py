@@ -149,12 +149,12 @@ def test_seeded_init_is_reproducible_and_seed_dependent():
 
 
 def test_training_entry_raises_not_ported():
-    """Training is ported, every XLS-R option with it; a model of Slice G
-    raises."""
+    """Training is ported, every XLS-R option with it; a BTSE model (Slice
+    G2) raises."""
     from scl_deepfake_audio_detection_torch.utils.registry import MODELS
 
     with pytest.raises(NotImplementedError, match="Slice G"):
-        MODELS.get("wav2vec2_aasist")
+        MODELS.get("wav2vec2_btse")
     model = LinearNLL(ssl=XLSRConfig.tiny(fuse_qkv=True, conv_impl="gemm"), emb_dim=16,
                       device="cpu")
     assert model.apply(torch.zeros(1, 4000), train=True).log_probs.requires_grad

@@ -113,13 +113,13 @@ def test_flagship_shape_constants():
         compute_dtype="bfloat16", gelu_impl="exact").approx_gelu
 
 
-@pytest.mark.parametrize("kw,err", [({"model": "xlsr_aasist"}, NotImplementedError),
-                                    ({"model": "xlsr_resnet"}, NotImplementedError),
+@pytest.mark.parametrize("kw,err", [({"model": "wav2vec2_btse"}, NotImplementedError),
+                                    ({"model": "wav2vec2_btse"}, NotImplementedError),
                                     ({"model": "xlsr_btse"}, NotImplementedError),
                                     ({"attention_impl": "xla"}, ValueError)])
 def test_unported_options_raise(kw, err):
-    """Every XLS-R option is ported; the back-ends of Slice G are not, and
-    the TPU's 'xla' attention has no counterpart."""
+    """Every XLS-R option is ported; the BTSE back-end (Slice G2) is not,
+    and the TPU's 'xla' attention has no counterpart."""
     from scl_deepfake_audio_detection_torch.utils.registry import MODELS
 
     with pytest.raises(err):
