@@ -55,18 +55,24 @@ Phases, each of which fails the script with a non-zero exit:
    'attn', 'attn_ffn', 'dots' and 'full', and two steps with bf16
    weight-grad stacks under fp32 compute (``--bf16_grads``), each with
    48 / 24 / 24 launches per step, ms of the second step and peak memory.
-   Then the model zoo (``phase_zoo``), AASIST with ``configs/conf-aasist.yaml``
-   and ResNet-18 (a YAML the phase writes) at XLS-R 300M bf16 on a
-   database of 4 train and 2 dev anchors and 16 eval clips: 2 train steps
+   Then the model zoo (``phase_zoo``), AASIST with ``configs/conf-aasist.yaml``,
+   ResNet-18 (a YAML the phase writes) and BTSE with
+   ``configs/conf-5-btse-trans64.yaml`` at XLS-R 300M bf16 on a
+   database of 4 train and 2 dev anchors and 16 eval clips (with quiet
+   and silent stretches, so that BTSE's bio tokens take all three values;
+   the card's tokens equal the CPU's): 2 train steps
    and 1 dev step through the training CLI (120 / 48 / 48 launches), the
-   running statistics finite and moved, ``last.ckpt`` in a fresh model
+   running statistics (where the head has them) finite and moved, ``last.ckpt`` in a fresh model
    scoring exactly as the trained one, ``--eval`` from it at [16, 64600]
    (24 launches), ``--serve`` replies equal to its cm1 to 6 decimals,
    ``--export_model`` fp (and int8 for AASIST, its buffers bit-equal to
-   the fp artifact's) and ``--eval --from_export`` within 1e-3 of ``--eval``
-   (24 launches), ``score_step``'s utt/s; then the committed tiny goldens
-   of both (``tests/golden/mini_{aasist,resnet}``) through the kernel and
-   at impl='reference', fp32, within 1e-4.
+   the fp artifact's) of the trained checkpoint cut to ``EARLY_LAYERS`` (4)
+   encoder layers and ``--eval --from_export`` within 1e-3 of ``--eval``
+   of that checkpoint (4 launches a forward each), ``score_step``'s utt/s
+   from ``last.ckpt``; then the committed tiny goldens
+   of the three (``tests/golden/mini_{aasist,resnet,btse}``) through the
+   kernel and at impl='reference', fp32, within 1e-4 (BTSE's tokens on the
+   card equal the golden's).
    Between ``--eval`` and ``fit``, the
    eval modes at XLS-R 300M bf16 on a 32-utterance database with four
    clips of 150000-260000 samples (``phase_eval_modes``): ``--eval``, then
@@ -92,7 +98,7 @@ Phases, each of which fails the script with a non-zero exit:
    rows per batch; and ``--eval --decode_cache`` twice, each score file
    equal to the run without a cache.  Then the scoring artifact
    (``phase_export``) at XLS-R 300M's widths and 4 encoder layers
-   (``cut_depth``; ``phase_zoo`` exports at all 24) bf16 on the same
+   (``cut_depth``; ``phase_zoo`` exports its heads at that depth too) bf16 on the same
    database:
    ``--export_model`` (fp and int8, a ``torch.export`` program recorded on
    the card, no weight in it), ``--verify_export`` (the fp artifact
@@ -137,7 +143,7 @@ with each path's counts under
 runs), ``serve_http``, ``eval_from_export``, ``serve_from_export``,
 ``train``, ``train_cli``,
 ``train_cli_device_aug``, ``remat_<policy>_per_step`` and
-``zoo_<aasist|resnet>_<train_cli|eval|serve|eval_from_export>``; the
+``zoo_<aasist|resnet|btse>_<train_cli|eval|serve|eval_from_export>``; the
 zoo's utt/s, ms per step and peak memory under the forward's ``zoo``;
 the forward's times at bucketed scoring's longest batch [16, 16, 349, 64]
 under ``eval_modes``; times at the training shape, ``ms`` = ``graph_ms``,
@@ -170,6 +176,7 @@ GOLDEN_SCORES = os.path.join(ROOT, "tests", "golden", "expected_scores.txt")
 EVAL_CONFIG = os.path.join(ROOT, "configs", "conf-eval-only.yaml")
 CONF3_CONFIG = os.path.join(ROOT, "configs", "conf-3-linear.yaml")
 AASIST_CONFIG = os.path.join(ROOT, "configs", "conf-aasist.yaml")
+BTSE_CONFIG = os.path.join(ROOT, "configs", "conf-5-btse-trans64.yaml")
 GOLDEN_DIR = os.path.join(ROOT, "tests", "golden")
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 rate, dense bf16 rate
@@ -218,10 +225,11 @@ MAIN_PATH_ATOL = 5e-2
 MAIN_SHAPE = (16, 16, 201, 64)  # XLS-R 300M at [16, 64600]: B, H, T, D
 TRAIN_SHAPE = (22, 16, 199, 64)  # XLS-R 300M at [2 x 11, 64000]
 BUCKET_SHAPE = (16, 16, 349, 64)  # bucketed scoring's longest batch, [16, 112000]
-# The artifact, reference-checkpoint, training-CLI and --device_aug phases
-# run XLS-R 300M's widths at this many encoder layers: phase_zoo drives the
-# CLI's training and the export path again at all 24, and their cost (the
-# export trace, checkpoints of 1.3 and 3.5 GB) grows with depth.
+# The artifact, reference-checkpoint, training-CLI and --device_aug phases,
+# and phase_zoo's exports, run XLS-R 300M's widths at this many encoder
+# layers: phase_zoo drives the CLI's training again at all 24, and the cost
+# of these paths (the export trace, ~1 s a layer; checkpoints of 1.3 and
+# 3.5 GB) grows with depth.
 EARLY_LAYERS = 4
 
 
@@ -1814,6 +1822,12 @@ def _cli_database(root, config=CONF3_CONFIG, **counts):
         f.write("\n".join(utts[:c["train"]]) + "\n")
     with open(os.path.join(root, "scp", "dev_bonafide.lst"), "w") as f:
         f.write("\n".join(utts[c["train"]:]) + "\n")
+    return _config_in(root, config), utts
+
+
+def _config_in(root, config):
+    """``config`` written into ``root`` with only its three paths changed
+    to the database's noise, RIR and augmentation-cache directories."""
     with open(config) as f:
         text = f.read()
     paths = {"noise_path": os.path.join(root, "musan"), "rir_path": os.path.join(root, "rirs"),
@@ -1826,7 +1840,7 @@ def _cli_database(root, config=CONF3_CONFIG, **counts):
     cfg = os.path.join(root, os.path.basename(config))
     with open(cfg, "w") as f:
         f.write(text)
-    return cfg, utts
+    return cfg
 
 
 def _observed_cli(K, argv):
@@ -2216,7 +2230,8 @@ def phase_train_cli(K, card, tmp):
 # last.ckpt through --eval, --serve and the exported artifact.
 # int8_head: the head whose int8 artifact is written beside the fp one (its
 # buffers bit-equal to the fp artifact's); one head keeps the phase short
-ZOO = dict(train=4, dev=2, eval_utts=16, batch=16, seed=1234, int8_head="aasist")
+ZOO = dict(kinds=("aasist", "resnet", "btse"), train=4, dev=2, eval_utts=16, batch=16,
+           seed=1234, int8_head="aasist")
 RESNET_MODEL = """model:
   name: wav2vec2_resnet
   flag_fix_ssl: false
@@ -2230,8 +2245,10 @@ def _zoo_database(root):
     """``_cli_database`` under conf-aasist.yaml (whose data section is
     conf-3's) with 4 train and 2 dev anchors, a ResNet-18 YAML beside it
     (the repository ships none: conf-aasist's with its model block
-    replaced), and 16 eval clips (every fourth a third of 64600 samples,
-    the zero-pad branch) in ``eval/`` and ``scp/test.lst``."""
+    replaced), conf-5's YAML and the real spoofs its data recipe adds, and
+    16 eval clips (every fourth a third of 64600 samples, the zero-pad
+    branch; each with a stretch at -40 dB and one of zeros) in ``eval/``
+    and ``scp/test.lst``."""
     from scl_deepfake_audio_detection_torch.utils.audio_io import save_wav
 
     aasist, _ = _cli_database(root, AASIST_CONFIG, train=ZOO["train"], dev=ZOO["dev"])
@@ -2241,21 +2258,47 @@ def _zoo_database(root):
     with open(resnet, "w") as f:
         f.write(RESNET_MODEL + "data:" + data)
     rng = np.random.default_rng(ZOO["seed"])
+    for i in range(3):
+        save_wav(os.path.join(root, "spoof", f"spoof{i}.wav"),
+                 (0.1 * rng.normal(size=64000)).astype(np.float32))
     utts = [f"eval{i:02d}.wav" for i in range(ZOO["eval_utts"])]
     for i, u in enumerate(utts):
         n = 64600 if i % 4 else 64600 // 3
-        save_wav(os.path.join(root, "eval", u), (0.1 * rng.normal(size=n)).astype(np.float32))
+        x = (0.1 * rng.normal(size=n)).astype(np.float32)
+        x[n // 5:n // 5 + n // 6] *= 0.01
+        x[3 * n // 5:3 * n // 5 + n // 8] = 0.0
+        save_wav(os.path.join(root, "eval", u), x)
     with open(os.path.join(root, "scp", "test.lst"), "w") as f:
         f.write("\n".join(utts) + "\n")
-    return {"aasist": aasist, "resnet": resnet}, utts
+    return {"aasist": aasist, "resnet": resnet, "btse": _config_in(root, BTSE_CONFIG)}, utts
+
+
+def _btse_tokens(db, utts, sb):
+    """BTSE's bio tokens of the eval clips as ``--eval`` crops them
+    (``pad_eval`` to 64600), on the card and on the CPU: equal, with all
+    three tokens present."""
+    from scl_deepfake_audio_detection_torch.dsp.biosegment import wav2bio
+    from scl_deepfake_audio_detection_torch.dsp.pad import pad_eval
+    from scl_deepfake_audio_detection_torch.utils.audio_io import load_audio
+
+    wav = torch.from_numpy(np.stack([pad_eval(load_audio(os.path.join(db, "eval", u)))
+                                     for u in utts[:sb]]).astype(np.float32))
+    on_card, on_cpu = wav2bio(wav.cuda()).cpu(), wav2bio(wav)
+    counts = torch.bincount(on_cpu.flatten().long(), minlength=3).tolist()
+    print(f"[zoo] btse: bio tokens of the {len(wav)} eval crops {tuple(on_cpu.shape)} on the "
+          f"card equal the CPU's: {torch.equal(on_card, on_cpu)}; silence / talking / "
+          f"breathing {counts}")
+    if not torch.equal(on_card, on_cpu) or min(counts) == 0:
+        raise AssertionError("btse: the card's bio tokens differ from the CPU's")
 
 
 def _zoo_golden(K, kind, layers):
     """The committed tiny golden of ``kind`` on the card, fp32 with TF32 off:
     the ``tests/seeded_params.seeded_tree`` parameters and the golden's
-    running statistics, scored through the kernel and at impl='reference';
-    both within 1e-4 of the JAX package's scores, 2 launches (the tiny
-    encoder's layers) per kernel forward."""
+    running statistics (BTSE has none), scored through the kernel and at
+    impl='reference'; both within 1e-4 of the JAX package's scores, 2
+    launches (the tiny encoder's layers) per kernel forward; BTSE's bio
+    tokens on the card equal to those the golden records."""
     from scl_deepfake_audio_detection_torch.models.params import load_jax_params
     from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
     from scl_deepfake_audio_detection_torch.train import checkpoint as ckpt
@@ -2273,11 +2316,18 @@ def _zoo_golden(K, kind, layers):
     n, t = meta["wav_shape"]
     wav = [(0.1 * rng.normal(size=(n, t))).astype(np.float32)
            for _ in range(meta["train_forwards"] + 1)][-1]
+    for row, start, end, factor in meta.get("stretches", []):
+        wav[row, start:end] *= np.float32(factor)
+    tokens_equal = True
+    if "tokens" in meta:
+        from scl_deepfake_audio_detection_torch.dsp.biosegment import wav2bio
+
+        tokens_equal = wav2bio(torch.from_numpy(wav).cuda()).tolist() == meta["tokens"]
     got, launches = {}, {}
     for impl in ("auto", "reference"):
         cfg = XLSRConfig.tiny(attention_impl=impl)
         model = MODELS.get(meta["model"])(ssl=cfg, device="cuda")
-        load_jax_params(model, seeded.seeded_tree(model, meta["param_seed"]), tree["buffers"])
+        load_jax_params(model, seeded.seeded_tree(model, meta["param_seed"]), tree.get("buffers"))
         K.reset_launches()
         got[impl] = score_step(model, wav).double().cpu().numpy()
         torch.cuda.synchronize()
@@ -2287,9 +2337,23 @@ def _zoo_golden(K, kind, layers):
     print(f"[zoo] golden {kind}: T={cfg.num_frames(t)} D={cfg.head_dim} fp32 on the card: max "
           f"|score - golden| kernel {err['auto']:.3e}, impl='reference' "
           f"{err['reference']:.3e} (tol {GOLDEN_ATOL:.0e}); kernel launches "
-          f"{launches['auto']}")
-    if max(err.values()) > GOLDEN_ATOL or launches["auto"] != expect:
+          f"{launches['auto']}" + ("" if "tokens" not in meta else
+                                   f"; bio tokens on the card equal the golden's: {tokens_equal}"))
+    if max(err.values()) > GOLDEN_ATOL or launches["auto"] != expect or not tokens_equal:
         raise AssertionError(f"the {kind} golden is not reproduced on the card")
+
+
+def _first_layers(tree, n=EARLY_LAYERS):
+    """A checkpoint's parameters and buffers with its XLS-R layer stack cut
+    to the first ``n`` layers (the stacked [L, ...] leaves)."""
+    def cut(t):
+        return {k: cut(v) for k, v in t.items()} if isinstance(t, dict) else t[:n]
+
+    params = dict(tree["params"])
+    ssl = dict(params["ssl"])
+    ssl["encoder"] = {**ssl["encoder"], "layers": cut(ssl["encoder"]["layers"])}
+    params["ssl"] = ssl
+    return {"params": params, **({"buffers": tree["buffers"]} if "buffers" in tree else {})}
 
 
 def _buffers_of(model):
@@ -2297,16 +2361,19 @@ def _buffers_of(model):
 
 
 def phase_zoo(K, card, tmp):
-    """AASIST (conf-aasist.yaml) and ResNet-18 at XLS-R 300M bf16 through
+    """AASIST (conf-aasist.yaml), ResNet-18 and BTSE (conf-5, on the card's
+    bio tokens, which must equal the CPU's) at XLS-R 300M bf16 through
     the port's CLI: 2 train steps and 1 dev step (48 / 24 / 24 launches a
-    step, 24 forwards a dev step), the running statistics finite and moved;
+    step, 24 forwards a dev step), the running statistics (AASIST, ResNet)
+    finite and moved;
     last.ckpt into a fresh model through load_train_state scores exactly as
     the trained one; --eval from last.ckpt on 16 clips of [16, 64600] (24
     launches); --serve on the same clips, its replies equal to --eval's cm1
-    to 6 decimals; --export_model (fp, and int8 for ZOO["int8_head"] with
-    its buffers bit-equal to the fp artifact's), --eval --from_export within
-    1e-3 of --eval; score_step's utt/s.  Then each committed tiny golden on
-    the card."""
+    to 6 decimals; last.ckpt's parameters and buffers cut to EARLY_LAYERS
+    encoder layers: --export_model of them (fp, and int8 for
+    ZOO["int8_head"] with its buffers bit-equal to the fp artifact's) and
+    --eval --from_export within 1e-3 of their --eval (4 launches a forward);
+    score_step's utt/s.  Then each committed tiny golden on the card."""
     from scl_deepfake_audio_detection_torch import cli
     from scl_deepfake_audio_detection_torch.cli import serve as serve_mod
     from scl_deepfake_audio_detection_torch.models.base import cast_matmul_params
@@ -2343,7 +2410,7 @@ def phase_zoo(K, card, tmp):
             raise AssertionError(f"{label}: launched {launches}, expected {want}")
         by_path[label] = dict(launches)
 
-    for kind in ("aasist", "resnet"):
+    for kind in ZOO["kinds"]:
         cfg_path = configs[kind]
         flags = ["--config", cfg_path, "--database_path", db, "--ssl_preset", "xlsr_300m",
                  "--compute_dtype", "bfloat16", "--seed", str(seed), "--device", "cuda"]
@@ -2365,8 +2432,9 @@ def phase_zoo(K, card, tmp):
                       for n, b in moved.items())
         stats[f"{kind}_cli_ms_per_step"] = seen["per_step_ms"]
         stats[f"{kind}_train_peak_gib"] = seen["peak"] / 2**30
-        print(f"[zoo] {card}: {kind} training CLI, XLS-R 300M bf16 remat 'attn', conf-aasist's "
-              f"data (V = 11, trim 64000), {steps} steps of 2 groups + {dev_steps} dev step: "
+        recipe = "conf-5's data (V = 14" if kind == "btse" else "conf-aasist's data (V = 11"
+        print(f"[zoo] {card}: {kind} training CLI, XLS-R 300M bf16 remat 'attn', {recipe}, "
+              f"trim 64000), {steps} steps of 2 groups + {dev_steps} dev step: "
               f"{seen['wall']:.2f}s wall, {seen['per_step_ms']:.2f} ms/step after the first, "
               f"peak memory {seen['peak'] / 2**30:.3f} GiB; launches {seen['launches']}; "
               f"{len(moved)} running statistics ({len(init)} at init), finite {finite}, "
@@ -2422,18 +2490,33 @@ def phase_zoo(K, card, tmp):
               f"--eval's cm1 to 6 decimals: {equal}")
         if not equal or fwd != forwards:
             raise AssertionError(f"{kind}: --serve replies differ from --eval")
+        if kind == "btse":
+            _btse_tokens(db, utts, sb)
 
-        # 5. the artifact: fp (and int8 for one head), --eval --from_export
+        # 5. the artifact of the trained checkpoint cut to EARLY_LAYERS layers
+        # (the export's trace and checkpoint load grow with depth): fp (and
+        # int8 for one head), --eval --from_export against --eval of it
+        ckpt_tree, _ = ckpt.load(last)
+        early = os.path.join(tmp, f"{kind}_early.ckpt")
+        ckpt.save(early, _first_layers(ckpt_tree))
+        from_early = flags + ["--model_path", early]
         arts = {q: os.path.join(tmp, f"art_{kind}_{q}")
                 for q in (("fp", "int8") if kind == ZOO["int8_head"] else ("fp",))}
-        for q, path in arts.items():
-            wall = run(f"{kind} --export_model {q}", from_ckpt + ["--export_model", path] + (
-                ["--export_quant", "int8"] if q == "int8" else []))
-            print(f"[zoo] {kind}: --export_model ({q}) in {wall:.2f}s (model and checkpoint "
-                  f"load included)")
+        with cut_depth():
+            for q, path in arts.items():
+                wall = run(f"{kind} --export_model {q}", from_early + ["--export_model", path] + (
+                    ["--export_quant", "int8"] if q == "int8" else []))
+                print(f"[zoo] {kind}: --export_model ({q}) at {EARLY_LAYERS} layers in "
+                      f"{wall:.2f}s (model and checkpoint load included)")
+            early_path = os.path.join(tmp, f"eval_{kind}_early.txt")
+            run(f"{kind} --eval at {EARLY_LAYERS} layers", from_early + [
+                "--eval", "--batch_size", str(sb), "--num_workers", "4", "--eval_output",
+                early_path])
+            expect(f"{kind}_eval_early", dict(K.LAUNCHES),
+                   dict(fwd_only, flash_attn_fwd=EARLY_LAYERS * forwards))
         with np.load(os.path.join(arts["fp"], "weights.npz")) as a:
             bufs = [k for k in a.files if k.startswith("b")]
-            bit_equal, n_q = bool(bufs), 0
+            bit_equal, n_q = bool(bufs) == bool(init), 0
             if "int8" in arts:
                 with np.load(os.path.join(arts["int8"], "weights.npz")) as b:
                     bit_equal = bit_equal and all(a[k].tobytes() == b[k].tobytes()
@@ -2445,15 +2528,16 @@ def phase_zoo(K, card, tmp):
             "--database_path", db, "--batch_size", str(sb), "--num_workers", "4",
             "--eval_output", art_path])
         expect(f"{kind}_eval_from_export", dict(K.LAUNCHES),
-               dict(fwd_only, flash_attn_fwd=layers * forwards))
+               dict(fwd_only, flash_attn_fwd=EARLY_LAYERS * forwards))
+        early_rows = {r[0]: float(r[2]) for r in _read_rows(early_path)}
         art_rows = {r[0]: float(r[2]) for r in _read_rows(art_path)}
-        art_err = max(abs(art_rows[u] - rows[u][1]) for u in utts)
+        art_err = max(abs(art_rows[u] - early_rows[u]) for u in utts)
         stats[f"{kind}_export_err"] = art_err
         int8 = (f"bit-equal in the int8 artifact {bit_equal} ({n_q} leaves int8)"
                 if "int8" in arts else "no int8 artifact for this head")
         print(f"[zoo] {kind}: {len(bufs)} buffer leaves, {int8}; --eval --from_export in "
-              f"{wall:.2f}s, max "
-              f"|d cm1| vs --eval {art_err:.3e} (tol 1e-3), launches {dict(K.LAUNCHES)}")
+              f"{wall:.2f}s, max |d cm1| vs --eval of the {EARLY_LAYERS}-layer checkpoint "
+              f"{art_err:.3e} (tol 1e-3), launches {dict(K.LAUNCHES)}")
         if not bit_equal or art_err > 1e-3 or sorted(art_rows) != sorted(utts):
             raise AssertionError(f"{kind}: the artifact disagrees")
 
@@ -2462,8 +2546,7 @@ def phase_zoo(K, card, tmp):
         model = MODELS.get(cfg.model.name).from_config(
             cfg.model, ssl=XLSRConfig.xlsr_300m(compute_dtype="bfloat16"), device="cuda",
             seed=seed)
-        ckpt_tree, _ = ckpt.load(last)
-        load_jax_params(model, ckpt_tree["params"], ckpt_tree["buffers"])
+        load_jax_params(model, ckpt_tree["params"], ckpt_tree.get("buffers"))
         del ckpt_tree
         cast_matmul_params(model.eval(), torch.bfloat16)
         wav = 0.1 * torch.randn(sb, 64600, device="cuda",
@@ -2476,10 +2559,21 @@ def phase_zoo(K, card, tmp):
         print(f"[zoo] {card}: {kind} score_step [{sb}, 64600] bf16 on the card: {ms:.3f} ms a "
               f"forward ({stats[f'{kind}_eval_utt_s']:.2f} utt/s), peak memory "
               f"{stats[f'{kind}_eval_peak_gib']:.3f} GiB")
+        if kind == "btse":  # the bio branch alone: segmentation, encoder, scoring
+            from scl_deepfake_audio_detection_torch.dsp.biosegment import wav2bio
+
+            with torch.inference_mode():
+                seg_ms = _best_ms(lambda: wav2bio(wav), calls=2, iters=5)
+                bio = wav2bio(wav)
+                enc_ms = _best_ms(lambda: model.bio_scoring_vector(bio), calls=2, iters=5)
+            stats["btse_segment_ms"], stats["btse_bio_encoder_ms"] = seg_ms, enc_ms
+            print(f"[zoo] {card}: btse's bio branch in that forward: wav2bio {seg_ms:.3f} ms, "
+                  f"the bio encoder and scoring {enc_ms:.3f} ms (CUDA events, host launches "
+                  f"included)")
         del model
         torch.cuda.empty_cache()
 
-    for kind in ("aasist", "resnet"):
+    for kind in ZOO["kinds"]:
         _zoo_golden(K, kind, layers)
     total = {name: sum(v[name] for k, v in by_path.items()) for name in K.KERNELS}
     print(f"[zoo] phase in {time.perf_counter() - t_phase:.2f}s; launches {total}")
@@ -2627,7 +2721,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"[depth] the export, reference-checkpoint, training-CLI and --device_aug "
           f"phases: XLS-R 300M widths at {EARLY_LAYERS} encoder layers (phase_zoo drives "
-          f"the CLI's training and export at all 24)")
+          f"the CLI's training at all 24, its exports at {EARLY_LAYERS})")
     with tempfile.TemporaryDirectory() as tmp, cut_depth():
         export_launches, export_stats = phase_export(K, card, tmp)
     lap("export")

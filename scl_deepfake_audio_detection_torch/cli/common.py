@@ -39,7 +39,7 @@ def _build_model(args, cfg, device):
     parameters from ``--seed``."""
     try:
         cls = MODELS.get(cfg.model.name)
-    except (KeyError, NotImplementedError) as e:
+    except KeyError as e:
         raise CliError(2, str(e).strip("'\""))
     gsd = "bfloat16" if args.bf16_grads else None
     ssl = getattr(XLSRConfig, args.ssl_preset)(compute_dtype=args.compute_dtype, remat=True,

@@ -2,9 +2,9 @@
 
 Counterpart of ``scl_deepfake_audio_detection_tpu/models/base.py``.  A model
 is an ``nn.Module`` whose ``apply(wav, train=False)`` returns a
-``ModelOutput``.  ``Linear``, ``LayerNorm``, ``Conv1d``, ``Conv2d`` and
-``BatchNorm`` hold parameters under the JAX package's tree names
-(``models/params.from_jax`` relies on that) and call the functions of
+``ModelOutput``.  ``Linear``, ``LayerNorm``, ``Conv1d``, ``Conv2d``,
+``BatchNorm`` and ``Embedding`` hold parameters under the JAX package's
+tree names (``models/params.from_jax`` relies on that) and call the functions of
 ``ops/layers``.  ``BatchNorm`` also holds its running statistics, the
 buffers ``mean`` and ``var`` of the JAX package's separate ``buffers``
 tree; it is not ``nn.BatchNorm2d``, whose ``num_batches_tracked`` the JAX
@@ -23,6 +23,8 @@ from scl_deepfake_audio_detection_torch.ops.layers import (
     batch_norm,
     conv1d,
     conv2d,
+    embedding,
+    init_embedding,
     layer_norm,
     linear,
 )
@@ -60,6 +62,22 @@ class Linear(Initialised):
                 compute_dtype: Optional[torch.dtype] = None,
                 fast_bwd: bool = False) -> torch.Tensor:
         return linear(x, self.weight, self.bias, compute_dtype, fast_bwd)
+
+
+class Embedding(Initialised):
+    """Token table ``weight`` [num, dim] (the JAX ``w`` leaf, in the same
+    layout), N(0, std) init."""
+
+    def __init__(self, num: int, dim: int, std: Optional[float] = None):
+        super().__init__()
+        self.std = std
+        self.weight = nn.Parameter(torch.empty(num, dim))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        init_embedding(self.weight.data, self.std, generator)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return embedding(ids, self.weight)
 
 
 class LayerNorm(Initialised):
@@ -172,16 +190,19 @@ def reset_buffers(model: nn.Module) -> nn.Module:
 
 
 def cast_matmul_params(model: nn.Module, dtype) -> nn.Module:
-    """Cast the matmul and conv weights (the JAX ``w`` leaves) to ``dtype``,
-    in place; layer-norm and batch-norm parameters, the batch-norm
-    statistics, biases and the other parameters (graph attention vectors,
-    master nodes) stay fp32.  Every linear and
-    conv casts its weight to the compute dtype anyway, so for inference this
-    only removes the per-call weight converts.  Training must not use it:
-    the optimizer needs fp32 master weights."""
+    """Cast every leaf the JAX package keys ``w`` to ``dtype``, in place:
+    the matmul and conv weights and the embedding tables.  Layer-norm and
+    batch-norm parameters, the batch-norm statistics, biases and the other
+    parameters (graph attention vectors, master nodes, relative-position
+    tables, GRU weights) stay fp32.  Every linear and conv that casts its
+    weight to the compute dtype is unchanged by it; the BTSE bio encoder's
+    fp32 linears and its token tables then compute with rounded weights,
+    as the JAX package's cast makes them.  Training must not use it: the
+    optimizer needs fp32 master weights."""
     with torch.no_grad():
         for m in model.modules():
-            if isinstance(m, (Linear, Conv1d, Conv2d)) and m.weight.is_floating_point():
+            if isinstance(m, (Linear, Conv1d, Conv2d, Embedding)) and \
+                    m.weight.is_floating_point():
                 m.weight.data = m.weight.data.to(dtype)
     return model
 

@@ -4,12 +4,14 @@ and back.
 The JAX package stores parameters as a nested dict of numpy arrays
 (``train/checkpoint.load``): linear ``w`` as [in, out], conv1d ``w`` as
 [K, Cin/groups, Cout], conv2d ``w`` as [KH, KW, Cin, Cout], layer norm and
-batch norm ``scale``/``bias``, other parameters (graph attention vectors,
-master nodes, position embeddings) as they are, and the encoder layers
+batch norm ``scale``/``bias``, embedding tables ``w`` as [num, dim], other
+parameters (graph attention vectors, master nodes, position embeddings,
+relative-position tables, GRU weights) as they are, and the encoder layers
 stacked as [L, ...] leaves under ``ssl/encoder/layers``.  Batch-norm
 running statistics live in a separate ``buffers`` tree with ``mean`` and
 ``var`` leaves at the norm's path.  The port's module tree carries the same
-names, so the map is per leaf: ``w`` -> ``weight`` (in torch layout),
+names, so the map is per leaf: ``w`` -> ``weight`` (in torch layout; an
+embedding table, under one of ``EMBEDDING_TABLES``, keeps its layout),
 ``scale`` -> ``weight``, ``b`` and ``bias`` -> ``bias``, any other leaf
 under its own name, buffers under their own names, and the stacked leaves
 split into ``encoder.layers.<i>``.  ``to_jax`` and ``buffers_to_jax`` are
@@ -28,6 +30,7 @@ from scl_deepfake_audio_detection_torch.models.base import (
     BatchNorm,
     Conv1d,
     Conv2d,
+    Embedding,
     LayerNorm,
     Linear,
     reset_buffers,
@@ -38,7 +41,12 @@ _STACKED = ("encoder", "layers")  # the XLS-R layer stack, under "ssl" in a full
 _LEAF_NAMES = {"w": "weight", "scale": "weight", "b": "bias", "bias": "bias"}
 # the JAX names of (weight, bias) of each parameter-holding module
 _MODULE_LEAVES = {Linear: ("w", "b"), Conv1d: ("w", "b"), Conv2d: ("w", "b"),
-                  LayerNorm: ("scale", "bias"), BatchNorm: ("scale", "bias")}
+                  LayerNorm: ("scale", "bias"), BatchNorm: ("scale", "bias"),
+                  Embedding: ("w",)}
+# the modules whose ``w`` is a token table [num, dim] in both packages (BTSE's
+# bio-token and position embeddings): the layout rule, which sees paths only,
+# leaves them as they are; a square table would otherwise pass transposed
+EMBEDDING_TABLES = ("bio_emb", "pos_emb")
 # kernel axes: torch -> JAX and JAX -> torch, by rank (linear, conv1d, conv2d)
 _TO_JAX = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}
 _TO_TORCH = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}
@@ -68,13 +76,14 @@ def _permute(t, axes):
 
 
 def _is_kernel(path: str) -> bool:
-    return path.rsplit(SEP, 1)[-1] == "w"
+    parts = path.split(SEP)
+    return parts[-1] == "w" and not (len(parts) > 1 and parts[-2] in EMBEDDING_TABLES)
 
 
 def jax_layout(path: str, t):
-    """One layer's leaf at ``path`` (a ``//`` path or the leaf name) from
-    torch layout to JAX layout: kernels ``w`` transposed, the rest as is.
-    Takes numpy arrays and tensors."""
+    """One layer's leaf at ``path`` (its ``//`` path in the JAX tree) from
+    torch layout to JAX layout: kernels ``w`` transposed, embedding tables
+    and the rest as is.  Takes numpy arrays and tensors."""
     return _permute(t, _TO_JAX[t.ndim]) if _is_kernel(path) and t.ndim in _TO_JAX else t
 
 
@@ -86,7 +95,7 @@ def torch_layout(path: str, t):
 
 def _torch_leaf(path: tuple, arr: np.ndarray) -> Tuple[str, torch.Tensor]:
     *mod, leaf = path
-    arr = torch_layout(leaf, arr)
+    arr = torch_layout(SEP.join(path), arr)
     key = ".".join(mod + [_LEAF_NAMES.get(leaf, leaf)])
     return key, torch.from_numpy(np.array(arr, copy=True))
 
@@ -162,7 +171,7 @@ def to_jax(model: nn.Module, host: bool = True):
     flat: Dict[tuple, object] = {}
     stacked: Dict[tuple, Dict[int, object]] = {}
     for _, path, p in _param_leaves(model):
-        arr = _host_or_device(jax_layout(path[-1], p.detach()), host)
+        arr = _host_or_device(jax_layout(SEP.join(path), p.detach()), host)
         n = _stack_end(path)
         if n:
             stacked.setdefault(path[:n] + path[n + 1:], {})[int(path[n])] = arr

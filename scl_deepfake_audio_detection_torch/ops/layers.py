@@ -18,7 +18,9 @@ the JAX [in, out] and [K, Cin/groups, Cout] leaves once, at load).
 - ``batch_norm`` computes in fp32 and returns the input dtype; in training
   it normalises with the batch's biased variance and moves the running
   statistics towards its mean and unbiased variance;
-- ``gelu`` is exact (erf) unless ``approximate`` selects the tanh form.
+- ``gelu`` is exact (erf) unless ``approximate`` selects the tanh form;
+- ``embedding`` gathers rows of a [num, dim] table, which keeps that
+  layout in both packages.
 
 While ``torch.export`` records a program (``torch.compiler.is_exporting``),
 the products whose formulation depends on the device (``linear``'s,
@@ -225,6 +227,19 @@ def max_pool2d(x: torch.Tensor, window, stride=None) -> torch.Tensor:
 
 def selu(x: torch.Tensor) -> torch.Tensor:
     return F.selu(x)
+
+
+def init_embedding(table: torch.Tensor, std: Optional[float] = None,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Fill a token table [num, dim] in place from N(0, std); std defaults
+    to 1, as torch's ``nn.Embedding``."""
+    return table.normal_(0.0, 1.0 if std is None else std, generator=generator)
+
+
+def embedding(ids: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """Rows of ``table`` [num, dim] at integer ``ids`` [...] -> [..., dim],
+    in the table's dtype."""
+    return F.embedding(ids.long(), table)
 
 
 def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -3,8 +3,7 @@
 Counterpart of ``scl_deepfake_audio_detection_tpu/utils/registry.py``: every
 pluggable component registers itself under the reference's names and
 aliases, so config names resolve uniformly and an unknown name fails with
-the list of valid choices.  A name the JAX package knows but the port does
-not have yet raises "not ported yet" with the slice that brings it.
+the list of valid choices.
 """
 
 from __future__ import annotations
@@ -16,10 +15,9 @@ from typing import Any, Dict, Iterable, Optional
 class Registry:
     """A name -> object registry with a decorator-style ``register``."""
 
-    def __init__(self, kind: str, not_ported: Optional[Dict[str, str]] = None):
+    def __init__(self, kind: str):
         self.kind = kind
         self._items: Dict[str, Any] = {}
-        self._not_ported = dict(not_ported or {})  # name -> the slice that ports it
 
     def register(self, name: Optional[str] = None, *, aliases: Iterable[str] = ()):
         """Decorator: ``@MODELS.register("xlsr_linear_nll")``."""
@@ -41,9 +39,6 @@ class Registry:
             _populate(self.kind)  # importing the module registers its items
         if name in self._items:
             return self._items[name]
-        if name in self._not_ported:
-            raise NotImplementedError(
-                f"{self.kind} {name!r} not ported yet ({self._not_ported[name]})")
         raise KeyError(f"unknown {self.kind} {name!r}; available: {sorted(self._items)}")
 
     def names(self):
@@ -51,15 +46,15 @@ class Registry:
         return sorted(self._items)
 
 
-MODELS = Registry("model", not_ported={
-    n: "Slice G2" for n in ("xlsr_btse", "wav2vec2_btse")})
+MODELS = Registry("model")
 DATASETS = Registry("dataset")
 AUGMENTATIONS = Registry("augmentation")
 
 _POPULATORS = {
     "model": ("scl_deepfake_audio_detection_torch.models.linear_nll",
               "scl_deepfake_audio_detection_torch.models.aasist",
-              "scl_deepfake_audio_detection_torch.models.resnet"),
+              "scl_deepfake_audio_detection_torch.models.resnet",
+              "scl_deepfake_audio_detection_torch.models.btse"),
     "dataset": ("scl_deepfake_audio_detection_torch.data.datasets",),
     "augmentation": ("scl_deepfake_audio_detection_torch.data.augment_registry",),
 }

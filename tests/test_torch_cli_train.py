@@ -197,10 +197,38 @@ def test_show_params_prints_the_jax_table(mini_db, capsys):
     (["--distill_from", "t.ckpt"], "Slice H"), (["--multihost"], "Slice H"),
     (["--mesh", "1,1"], "Slice H"), (["--zero1"], "Slice H"),
 ])
-def test_later_slice_flags_exit_2(argv, where, capsys):
-    """Slice E's flags are ported; the flags of Slice H and the BTSE models
-    of Slice G2 exit 2 naming their slice, in any mode."""
-    assert port_main(argv + ["--device", "cpu", "--ssl_preset", "tiny"]) == 2
+def test_later_slice_flags_exit_2(argv, where, capsys, mini_db, tmp_path, monkeypatch):
+    """Slice E's flags are ported; the flags of Slice H exit 2 naming their
+    slice, in any mode.  The BTSE config of Slice G2 (the cases that exited
+    2 before it was ported) now runs each mode, on ``mini_db`` at conf-5's
+    model: ``--eval --predict`` writes a row per utterance, training writes
+    ``last.ckpt``, ``--serve`` replies."""
+    flags = ["--device", "cpu", "--ssl_preset", "tiny"]
+    if where == "Slice G":
+        root, cfg, utts = mini_db
+        conf5 = tmp_path / "conf5.yaml"
+        with open(argv[-1]) as f:
+            model = f.read().split("\ndata:", 1)[0]
+        with open(cfg) as f:
+            conf5.write_text(model + "\ndata:" + f.read().split("\ndata:", 1)[1])
+        run = argv[:-1] + [str(conf5), "--database_path", str(root),
+                           "--compute_dtype", "float32"]
+        if "--eval" in argv:
+            out = tmp_path / "pred.txt"
+            assert port_main(run + flags + ["--eval_output", str(out)]) == 0
+            assert sorted(ln.split()[0] for ln in open(out)) == sorted(utts)
+        elif "--serve" in argv:
+            monkeypatch.setattr("sys.stdin", io.StringIO(f"a\t{root}/eval/{utts[0]}\n"))
+            assert port_main(run + flags) == 0
+            reply = capsys.readouterr().out.strip().split("\t")
+            assert reply[0] == "a" and np.isfinite(float(reply[1]))
+        else:
+            assert port_main(run + flags + ["--num_epochs", "1", "--batch_size", "2",
+                                            "--out_dir", str(tmp_path / "out")]) == 0
+            assert list((tmp_path / "out").glob("*/last.ckpt"))
+        assert "not ported yet" not in capsys.readouterr().err
+        return
+    assert port_main(argv + flags) == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and where in err
 

@@ -97,9 +97,12 @@ def test_augmentation_names_and_aliases_equal_jax():
 
 
 def test_models_registry_has_linear_nll_and_refuses_the_rest():
-    """(The name is from when only LinearNLL resolved.)  LinearNLL, AASIST
-    and ResNet resolve to the port's classes; BTSE refuses (Slice G2)."""
+    """(The name is from when only LinearNLL resolved.)  LinearNLL, AASIST,
+    ResNet and BTSE resolve to the port's classes, under every name of the
+    JAX registry; an unknown name is refused with the list."""
+    from scl_deepfake_audio_detection_tpu.utils.registry import MODELS as JMODELS
     from scl_deepfake_audio_detection_torch.models.aasist import XLSRAasist
+    from scl_deepfake_audio_detection_torch.models.btse import XLSRBtse
     from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
     from scl_deepfake_audio_detection_torch.models.resnet import XLSRResNet
 
@@ -109,8 +112,8 @@ def test_models_registry_has_linear_nll_and_refuses_the_rest():
     for name in ("xlsr_resnet", "wav2vec2_resnet", "wav2vec2_resnet_nll", "xlsr_resnet_nll"):
         assert MODELS.get(name) is XLSRResNet, name
     for name in ("xlsr_btse", "wav2vec2_btse"):
-        with pytest.raises(NotImplementedError, match="not ported yet.*Slice G"):
-            MODELS.get(name)
+        assert MODELS.get(name) is XLSRBtse, name
+    assert set(JMODELS.names()) <= set(MODELS.names())
     with pytest.raises(KeyError, match="unknown model"):
         MODELS.get("no_such_model")
 

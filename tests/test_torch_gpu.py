@@ -501,3 +501,68 @@ def _leaves(tree):
     if isinstance(tree, (list, tuple)):
         return [x for v in tree for x in _leaves(v)]
     return [tree]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["transformer", "gru", "conv", "light"])
+def test_btse_forward_and_train_step_on_the_card_match_the_cpu(kind):
+    """The tiny BTSE model, fp32 with TF32 off: the card's forward (tokens
+    included) and one train step (the same dropout masks on both sides)
+    against the CPU's plain path, every kernel launched (once a layer a
+    step each, without remat); for the transformer, the committed BTSE golden through the
+    kernel within 1e-4, its tokens equal to the golden's."""
+    _need_card()
+    from scl_deepfake_audio_detection_torch.dsp.biosegment import wav2bio
+    from scl_deepfake_audio_detection_torch.models.btse import XLSRBtse
+    from scl_deepfake_audio_detection_torch.models.params import load_jax_params, to_jax
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.train import checkpoint as ckpt
+    from scl_deepfake_audio_detection_torch.train.engine import Engine, score_step
+    from scl_deepfake_audio_detection_torch.utils.config import TrainConfig
+    from seeded_params import seeded_tree
+
+    rng = np.random.default_rng(1)
+    wav = (0.1 * rng.normal(size=(2, 4, 6400))).astype(np.float32)
+    wav[:, :, 1600:3200] *= 0.01
+    wav[:, 1:, 4800:5600] = 0.0
+    batch = {"wav": wav, "labels": np.tile([1.0, 1.0, 0.0, 0.0], (2, 1)).astype(np.float32)}
+    cpu = XLSRBtse(ssl=XLSRConfig.tiny(), bio_encoder_type=kind, device="cpu", seed=4)
+    card = load_jax_params(XLSRBtse(ssl=XLSRConfig.tiny(), bio_encoder_type=kind,
+                                    device="cuda"), to_jax(cpu))
+    flat = wav.reshape(8, -1)
+    assert torch.equal(wav2bio(torch.from_numpy(flat)), wav2bio(torch.from_numpy(flat).cuda()).cpu())
+    _kernels.reset_launches()
+    got = score_step(card, flat).cpu().numpy()
+    assert _kernels.LAUNCHES["flash_attn_fwd"] == 2
+    np.testing.assert_allclose(got, score_step(cpu, flat).numpy(), atol=1e-4, rtol=0)
+    masks = [torch.from_numpy(rng.random(shape) < 1.0 - rate)
+             for rate, shape in cpu.dropout_sites(8, 6400)]
+    engines = [Engine(m, TrainConfig()) for m in (cpu, card)]
+    metrics = []
+    for eng in engines:
+        eng.init_state()
+        _kernels.reset_launches()
+        metrics.append(eng.train_step(eng.place_batch(batch), eng.step_generator(0, 0),
+                                      dropout_masks=masks))
+    assert _kernels.LAUNCHES == {"flash_attn_fwd": 2, "flash_attn_bwd_dq": 2,
+                                 "flash_attn_bwd_dkv": 2}
+    for k, v in metrics[0].items():
+        np.testing.assert_allclose(float(metrics[1][k]), float(v), rtol=1e-4, atol=1e-4,
+                                   err_msg=k)
+    for (name, a), b in zip(cpu.named_parameters(), card.parameters()):
+        np.testing.assert_allclose(b.detach().cpu().numpy(), a.detach().numpy(), rtol=1e-4,
+                                   atol=1e-5, err_msg=name)
+    if kind == "transformer":
+        golden = os.path.join(REPO, "tests", "golden")
+        _, meta = ckpt.load(os.path.join(golden, "mini_btse.ckpt"))
+        want = np.array([[float(v) for v in ln.split()[1:]]
+                         for ln in open(os.path.join(golden, "mini_btse_scores.txt"))])
+        g = np.random.default_rng(meta["wav_seed"])
+        x = (0.1 * g.normal(size=tuple(meta["wav_shape"]))).astype(np.float32)
+        for row, start, end, factor in meta["stretches"]:
+            x[row, start:end] *= np.float32(factor)
+        model = XLSRBtse(ssl=XLSRConfig.tiny(), device="cuda")
+        load_jax_params(model, seeded_tree(model, meta["param_seed"]))
+        assert wav2bio(torch.from_numpy(x).cuda()).tolist() == meta["tokens"]
+        np.testing.assert_allclose(score_step(model, x).double().cpu().numpy(), want,
+                                   atol=1e-4, rtol=0)

@@ -149,12 +149,15 @@ def test_seeded_init_is_reproducible_and_seed_dependent():
 
 
 def test_training_entry_raises_not_ported():
-    """Training is ported, every XLS-R option with it; a BTSE model (Slice
-    G2) raises."""
+    """(The name is from before Slice G2.)  Training is ported, every XLS-R
+    option with it, and a BTSE model (Slice G2) trains too."""
+    from scl_deepfake_audio_detection_torch.models.btse import XLSRBtse
     from scl_deepfake_audio_detection_torch.utils.registry import MODELS
 
-    with pytest.raises(NotImplementedError, match="Slice G"):
-        MODELS.get("wav2vec2_btse")
+    cls = MODELS.get("wav2vec2_btse")
+    assert cls is XLSRBtse
+    btse = cls(ssl=XLSRConfig.tiny(), device="cpu")
+    assert btse.apply(torch.zeros(1, 4000), train=True).log_probs.requires_grad
     model = LinearNLL(ssl=XLSRConfig.tiny(fuse_qkv=True, conv_impl="gemm"), emb_dim=16,
                       device="cpu")
     assert model.apply(torch.zeros(1, 4000), train=True).log_probs.requires_grad

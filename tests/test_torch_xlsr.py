@@ -113,19 +113,25 @@ def test_flagship_shape_constants():
         compute_dtype="bfloat16", gelu_impl="exact").approx_gelu
 
 
-@pytest.mark.parametrize("kw,err", [({"model": "wav2vec2_btse"}, NotImplementedError),
-                                    ({"model": "wav2vec2_btse"}, NotImplementedError),
-                                    ({"model": "xlsr_btse"}, NotImplementedError),
-                                    ({"attention_impl": "xla"}, ValueError)])
+# (The BTSE cases keep the ids from when BTSE raised NotImplementedError.)
+@pytest.mark.parametrize("kw,err", [
+    pytest.param({"model": "wav2vec2_btse"}, None, id="kw0-NotImplementedError"),
+    pytest.param({"model": "wav2vec2_btse"}, None, id="kw1-NotImplementedError"),
+    pytest.param({"model": "xlsr_btse"}, None, id="kw2-NotImplementedError"),
+    ({"attention_impl": "xla"}, ValueError)])
 def test_unported_options_raise(kw, err):
-    """Every XLS-R option is ported; the BTSE back-end (Slice G2) is not,
-    and the TPU's 'xla' attention has no counterpart."""
+    """Every XLS-R option is ported, and so is the BTSE back-end over it
+    (Slice G2: both names build a BTSE model on this SSL config); the
+    TPU's 'xla' attention has no counterpart."""
+    from scl_deepfake_audio_detection_torch.models.btse import XLSRBtse
     from scl_deepfake_audio_detection_torch.utils.registry import MODELS
 
-    with pytest.raises(err):
-        if "model" in kw:
-            MODELS.get(kw["model"])
-        else:
+    if "model" in kw:
+        cls = MODELS.get(kw["model"])
+        assert cls is XLSRBtse
+        assert isinstance(cls(ssl=PX.XLSRConfig.tiny(), device="meta").ssl, PX.XLSR)
+    else:
+        with pytest.raises(err):
             PX.XLSR(PX.XLSRConfig.tiny(**kw))
     for impl in ("conv", "gemm", "phase"):
         PX.XLSR(PX.XLSRConfig.tiny(conv_impl=impl, fuse_qkv=True))

@@ -38,7 +38,10 @@ import jax.numpy as jnp
 from scl_deepfake_audio_detection_tpu.models import resnet as JRN
 from scl_deepfake_audio_detection_tpu.models import xlsr as JX
 from scl_deepfake_audio_detection_tpu.models.aasist import XLSRAasist as JAasist
+from scl_deepfake_audio_detection_tpu.dsp.biosegment import wav2bio as jwav2bio
+from scl_deepfake_audio_detection_tpu.models.base import eval_scores as jeval_scores
 from scl_deepfake_audio_detection_tpu.models.base import model_buffers
+from scl_deepfake_audio_detection_tpu.models.btse import XLSRBtse as JBtse
 from scl_deepfake_audio_detection_tpu.models.resnet import XLSRResNet as JResNet
 from scl_deepfake_audio_detection_tpu.train import checkpoint as jckpt
 from scl_deepfake_audio_detection_tpu.train import engine as JE
@@ -48,7 +51,9 @@ from scl_deepfake_audio_detection_tpu.utils.config import load_config as jload_c
 from scl_deepfake_audio_detection_torch.models import resnet as PRN
 from scl_deepfake_audio_detection_torch.models import xlsr as PX
 from scl_deepfake_audio_detection_torch.models.aasist import XLSRAasist
+from scl_deepfake_audio_detection_torch.dsp.biosegment import wav2bio
 from scl_deepfake_audio_detection_torch.models.base import model_buffers as pmodel_buffers
+from scl_deepfake_audio_detection_torch.models.btse import XLSRBtse
 from scl_deepfake_audio_detection_torch.models.params import (
     buffers_to_jax,
     from_jax,
@@ -173,8 +178,11 @@ def test_zoo_names_resolve(name, cls):
 
 @pytest.mark.parametrize("name", ["xlsr_btse", "wav2vec2_btse"])
 def test_btse_waits_for_slice_g2(name):
-    with pytest.raises(NotImplementedError, match="not ported yet.*Slice G2"):
-        MODELS.get(name)
+    """(The name is from before Slice G2.)  Both BTSE names resolve to the
+    port's ``XLSRBtse`` (``tests/test_torch_btse.py``)."""
+    from scl_deepfake_audio_detection_torch.models.btse import XLSRBtse
+
+    assert MODELS.get(name) is XLSRBtse
 
 
 # -------------------------------------------------------- trees and forward
@@ -551,7 +559,12 @@ def test_export_weights_have_the_jax_keys(zoo, tmp_path):
 
 # ----------------------------------------------------------------- goldens
 
-GOLDEN_KINDS = {"aasist": "xlsr_aasist", "resnet": "xlsr_resnet"}
+GOLDEN_KINDS = {"aasist": "xlsr_aasist", "resnet": "xlsr_resnet", "btse": "xlsr_btse"}
+GOLDEN_MODELS = {**KINDS, "btse": (JBtse, XLSRBtse)}
+# BTSE's eval clips: [row, start, end, factor] stretches scaled after the
+# draw (1/100: -40 dB, BREATHING; 0: SILENCE), so that every bio token occurs
+BTSE_STRETCHES = [[0, 1600, 3200, 0.01], [0, 5120, 6400, 0.0], [1, 3000, 4900, 0.01],
+                  [2, 0, 2560, 0.0], [2, 6400, 8000, 0.01], [3, 2200, 7000, 0.01]]
 
 
 def _golden_inputs(meta):
@@ -559,24 +572,33 @@ def _golden_inputs(meta):
     n, t = meta["wav_shape"]
     batches = [(0.1 * rng.normal(size=(n, t))).astype(np.float32)
                for _ in range(meta["train_forwards"] + 1)]
+    for row, start, end, factor in meta.get("stretches", []):
+        batches[-1][row, start:end] *= np.float32(factor)
     return batches[:-1], batches[-1]
 
 
 def build_golden(kind):
     """(buffers, scores, meta) of a tiny golden, computed by the JAX package:
     the parameters of ``seeded_tree`` (tiny SSL, the head's defaults), the
-    running statistics of two train-mode forwards, the eval scores."""
+    running statistics of two train-mode forwards (AASIST, ResNet), the eval
+    scores; for BTSE, which has no running statistics, the eval clips'
+    stretches and the JAX package's bio tokens of them."""
     meta = {"model": GOLDEN_KINDS[kind], "ssl_preset": "tiny", "param_seed": 7,
-            "wav_seed": 20241018, "wav_shape": [4, 8000], "train_forwards": 2}
-    shapes = KINDS[kind][1](ssl=PX.XLSRConfig.tiny(), device="meta")
+            "wav_seed": 20241018, "wav_shape": [4, 8000],
+            "train_forwards": 0 if kind == "btse" else 2}
+    if kind == "btse":
+        meta["stretches"] = BTSE_STRETCHES
+    shapes = GOLDEN_MODELS[kind][1](ssl=PX.XLSRConfig.tiny(), device="meta")
     params = jax.tree.map(jnp.asarray, seeded_tree(shapes, meta["param_seed"]))
-    jm = KINDS[kind][0](ssl=JX.XLSRConfig.tiny())
+    jm = GOLDEN_MODELS[kind][0](ssl=JX.XLSRConfig.tiny())
     buffers = model_buffers(jm)
     train, wav = _golden_inputs(meta)
     for w in train:
         _, buffers = _japply(jm, params, w, True, buffers=buffers)
     out, _ = _japply(jm, params, wav, False, buffers=buffers)
-    return _tree(buffers), _np(jm.eval_scores(out)), meta
+    if kind == "btse":
+        meta["tokens"] = np.asarray(jwav2bio(jnp.asarray(wav))).tolist()
+    return _tree(buffers), _np(jeval_scores(jm, out)), meta
 
 
 def write_golden(kind):
@@ -590,7 +612,7 @@ def _read_golden(kind):
     tree, meta = pckpt.load(os.path.join(GOLDEN, f"mini_{kind}.ckpt"))
     with open(os.path.join(GOLDEN, f"mini_{kind}_scores.txt")) as f:
         scores = np.array([[float(v) for v in ln.split()[1:]] for ln in f], np.float32)
-    return tree["buffers"], scores, meta
+    return tree.get("buffers", {}), scores, meta  # BTSE's has none
 
 
 @pytest.mark.parametrize("kind", sorted(GOLDEN_KINDS))
@@ -611,6 +633,9 @@ def test_port_reproduces_the_goldens(kind):
     with torch.inference_mode():
         got = PE.score_step(model, wav).numpy()
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+    if "tokens" in meta:  # the JAX package's tokens, all three of them
+        assert sorted({v for row in meta["tokens"] for v in row}) == [0, 1, 2]
+        assert wav2bio(torch.from_numpy(wav)).tolist() == meta["tokens"]
 
 
 if __name__ == "__main__":  # rewrite the goldens (deliberate numerics changes only)

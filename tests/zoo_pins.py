@@ -1,7 +1,8 @@
 """Pin the zoo heads' discrete choices of a port forward onto the JAX model.
 
-AASIST and ResNet make choices that a rounding difference can flip: the
-sign of a ReLU or SELU input (the derivative jumps there), the arg-maximum
+AASIST, ResNet and BTSE make choices that a rounding difference can flip:
+the sign of a ReLU, LeakyReLU (BTSE's frame MLP) or SELU input (the
+derivative jumps there), the arg-maximum
 of a max pool, of an elementwise maximum and of AASIST's ``max |x|``
 readout, and the node order of ``graph_pool``'s top-k.  The port and the
 JAX package sum in different orders, so an input within a rounding error
@@ -30,12 +31,17 @@ import jax
 import jax.numpy as jnp
 
 from scl_deepfake_audio_detection_tpu.models import aasist as JA
+from scl_deepfake_audio_detection_tpu.models import btse as JB
 from scl_deepfake_audio_detection_tpu.models import resnet as JRN
 from scl_deepfake_audio_detection_tpu.ops import graph as JG
+from scl_deepfake_audio_detection_tpu.ops import relpos_transformer as JRP
+from scl_deepfake_audio_detection_tpu.ops.layers import leaky_relu as jax_leaky_relu
 from scl_deepfake_audio_detection_tpu.ops.layers import max_pool2d as jax_max_pool2d
 from scl_deepfake_audio_detection_torch.models import aasist as PA
+from scl_deepfake_audio_detection_torch.models import btse as PB
 from scl_deepfake_audio_detection_torch.models import resnet as PRN
 from scl_deepfake_audio_detection_torch.ops import graph as PG
+from scl_deepfake_audio_detection_torch.ops import relpos_transformer as PRP
 
 SELU_SCALE, SELU_ALPHA = 1.0507009873554804934193349852946, 1.6732632423543772848170429916717
 
@@ -87,6 +93,10 @@ def record_port():
         keep("sign", x > 0)
         return torch.relu(x)
 
+    def leaky_relu(x, slope=0.01):
+        keep("sign", x > 0)
+        return F.leaky_relu(x, slope)
+
     def max_pool2d(x, window, stride=None):
         y, idx = F.max_pool2d(x, window, window if stride is None else stride,
                               return_indices=True)
@@ -111,7 +121,9 @@ def record_port():
                    (PA, "max_pool2d", max_pool2d),
                    (PA, "torch", _Proxy(torch, maximum=maximum, amax=amax)),
                    (PG, "torch", _Proxy(torch, sort=sort)),
-                   (PRN, "torch", _Proxy(torch, relu=relu))]):
+                   (PRN, "torch", _Proxy(torch, relu=relu)),
+                   (PB, "leaky_relu", leaky_relu),
+                   (PRP, "torch", _Proxy(torch, relu=relu))]):
         yield choices
 
 
@@ -144,6 +156,10 @@ def pin_jax(choices):
         (pos,) = take("sign", x.shape)
         return jnp.where(pos, x, jnp.zeros_like(x))
 
+    def leaky_relu(x, slope=0.01):
+        (pos,) = take("sign", x.shape)
+        return jnp.where(pos, x, slope * x)
+
     def max_pool2d(x, window, stride=None):
         idx, _ = take("pool", x.shape)
         n, h, w, c = x.shape
@@ -169,7 +185,9 @@ def pin_jax(choices):
                    (JA, "max_pool2d", max_pool2d),
                    (JA, "jnp", _Proxy(jnp, maximum=maximum, max=amax)),
                    (JG, "jax", _Proxy(jax, lax=_Proxy(jax.lax, top_k=top_k))),
-                   (JRN, "jax", _Proxy(jax, nn=_Proxy(jax.nn, relu=relu)))]):
+                   (JRN, "jax", _Proxy(jax, nn=_Proxy(jax.nn, relu=relu))),
+                   (JB, "leaky_relu", leaky_relu),
+                   (JRP, "jax", _Proxy(jax, nn=_Proxy(jax.nn, relu=relu)))]):
         yield
     assert next(it, None) is None, "the JAX model made fewer choices than the port"
 
@@ -188,6 +206,10 @@ def jax_choices():
     def relu(x):
         seen.append(("sign", np.asarray(x), np.asarray(x > 0)))
         return jax.nn.relu(x)
+
+    def leaky_relu(x, slope=0.01):
+        seen.append(("sign", np.asarray(x), np.asarray(x >= 0)))
+        return jax_leaky_relu(x, slope)
 
     def max_pool2d(x, window, stride=None):
         y = jax_max_pool2d(x, window, stride)
@@ -211,7 +233,9 @@ def jax_choices():
                    (JA, "max_pool2d", max_pool2d),
                    (JA, "jnp", _Proxy(jnp, maximum=maximum, max=amax)),
                    (JG, "jax", _Proxy(jax, lax=_Proxy(jax.lax, top_k=top_k))),
-                   (JRN, "jax", _Proxy(jax, nn=_Proxy(jax.nn, relu=relu)))]):
+                   (JRN, "jax", _Proxy(jax, nn=_Proxy(jax.nn, relu=relu))),
+                   (JB, "leaky_relu", leaky_relu),
+                   (JRP, "jax", _Proxy(jax, nn=_Proxy(jax.nn, relu=relu)))]):
         yield seen
 
 
@@ -254,7 +278,8 @@ def disagreements(port, seen):
 
 
 # Gradients with the choices pinned, leaf by leaf (readings on the CPU at the
-# tiny config, both heads, every term): a leaf whose reference gradient is
+# tiny config, AASIST and ResNet, every term; BTSE's 'transformer' and 'gru'
+# heads pass under the same rule): a leaf whose reference gradient is
 # below ZERO_RULE of the largest in its part of the model (the SSL frontend
 # or the head) is zero up to rounding, by the model's structure: the key
 # bias of attention, a bias ahead of a batch norm or of a softmax over the
