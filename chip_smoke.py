@@ -14,8 +14,9 @@ Phases, each of which fails the script with a non-zero exit:
    backward kernels (dq and D = rowsum(dO * O) from the dq kernel, dk and
    dv from the dk/dv kernel fed that D) against their plain PyTorch
    versions at
-   [2, 16, T, 64], T in {199, 201, 1024}, kv_len in {None, T-13}, bf16 and
-   fp32, within stated tolerances; dk and dv rows at keys >= kv_len must be
+   [2, 16, T, 64] and [2, 8, T, 96] (the distillation student's heads), T in
+   {199, 201, 1024}, kv_len in {None, T-13}, bf16 and fp32, within stated
+   tolerances; dk and dv rows at keys >= kv_len must be
    exactly 0; autograd through ``self_attention`` against autograd through
    ``attention_reference``; and at [1, 16, 4096, 64] bf16 the peak memory
    of forward plus backward must stay below one fp32 [T, T] score tensor;
@@ -73,6 +74,20 @@ Phases, each of which fails the script with a non-zero exit:
    of the three (``tests/golden/mini_{aasist,resnet,btse}``) through the
    kernel and at impl='reference', fp32, within 1e-4 (BTSE's tokens on the
    card equal the golden's).
+   Then distillation (``phase_distill``): a seeded ``wav2vec2_linear_nll``
+   teacher at XLS-R 300M written once as a ``.ckpt``, then ``--distill_from``
+   through the port's CLI with ``--ssl_preset student_base`` (12 layers, 8
+   heads of 96) and conf-3's YAML on the training CLI's database, 3 steps of
+   [2, 11, 64000] bf16: launches exact (24 teacher forwards, 2 x 12 student
+   forwards under remat 'attn', 12 dq and 12 dk/dv a step), the teacher's
+   parameters bit-unchanged (sha256), the student moved and equal to
+   ``student_last.ckpt``, every metric finite, the step's ms and the
+   teacher forward's share of it (CUDA events) and peak memory; ``--eval
+   --model_path student_last.ckpt --ssl_preset student_base`` on 16 clips
+   (12 launches a forward, finite rows); the committed tiny distillation
+   golden (``tests/golden/mini_distill*``: two steps' metrics and the
+   student's scores, student head dim 96) within 1e-4 through the kernels;
+   and which path the codec augmentations take on the host (reported).
    Between ``--eval`` and ``fit``, the
    eval modes at XLS-R 300M bf16 on a 32-utterance database with four
    clips of 150000-260000 samples (``phase_eval_modes``): ``--eval``, then
@@ -117,8 +132,9 @@ Phases, each of which fails the script with a non-zero exit:
    'conv' relative to its largest, scores within 5e-2, ms a forward, and
    one conf-3 step with 'conv', ``fuse_qkv``, 'gemm' and 'phase', 48 / 24
    / 24 launches each;
-6. times: CUDA-event times of each kernel at the training shape [22, 16,
-   199, 64] bf16 (the forward also at the eval shape [16, 16, 201, 64]
+6. times: CUDA-event times of each kernel at the distillation student's
+   shape [22, 8, 199, 96] and at the training shape [22, 16, 199, 64] bf16
+   (the forward also at the eval shape [16, 16, 201, 64]
    and at bucketed scoring's longest batch [16, 16, 349, 64]), replayed
    from a CUDA graph, best of two, with its eager time beside it; of its
    plain version; and of the PyTorch yardstick
@@ -137,17 +153,21 @@ input, its ``ms_before`` is that kernel and torch's D as one graphed
 callable, so that both times cover the same work.
 
 The JSON object with one entry per kernel comes two lines before the last
-(launches counted on the model zoo's path, ``phase_zoo``'s CLI runs,
+(launches counted on the distillation path, ``phase_distill``'s CLI run,
 with each path's counts under
 ``launches_by_path``: ``eval``, ``eval_modes``, ``serve`` (the stdin
 runs), ``serve_http``, ``eval_from_export``, ``serve_from_export``,
 ``train``, ``train_cli``,
 ``train_cli_device_aug``, ``remat_<policy>_per_step`` and
-``zoo_<aasist|resnet|btse>_<train_cli|eval|serve|eval_from_export>``; the
-zoo's utt/s, ms per step and peak memory under the forward's ``zoo``;
+``zoo_<aasist|resnet|btse>_<train_cli|eval|serve|eval_from_export>``,
+``zoo`` (the zoo's total), ``distill`` and ``distill_student_eval``; the
+zoo's utt/s, ms per step and peak memory under the forward's ``zoo``, the
+distillation step's under ``distill``;
 the forward's times at bucketed scoring's longest batch [16, 16, 349, 64]
-under ``eval_modes``; times at the training shape, ``ms`` = ``graph_ms``,
-with ``eager_ms`` and ``ms_before``; the forward's eval-shape times under
+under ``eval_modes``; times at the training shape [22, 16, 199, 64],
+``ms`` = ``graph_ms``, with ``eager_ms`` and ``ms_before``, as before
+distillation was ported, and at the student's shape [22, 8, 199, 96] under
+``student_shape``; the forward's eval-shape times under
 ``eval``, the artifact's under ``export``; before it the per-conv table
 as ``[conv-json]`` and the reference checkpoint's as ``[refckpt-json]``),
 then the card's name and power limit, and the last line
@@ -225,6 +245,10 @@ MAIN_PATH_ATOL = 5e-2
 MAIN_SHAPE = (16, 16, 201, 64)  # XLS-R 300M at [16, 64600]: B, H, T, D
 TRAIN_SHAPE = (22, 16, 199, 64)  # XLS-R 300M at [2 x 11, 64000]
 BUCKET_SHAPE = (16, 16, 349, 64)  # bucketed scoring's longest batch, [16, 112000]
+# the distillation student (XLSRConfig.student_base: 768 wide, 8 heads) at [2 x 11, 64000]
+STUDENT_SHAPE = (22, 8, 199, 96)
+# the kernel-vs-plain phases' shapes at a given T: XLS-R 300M's heads and the student's
+HEAD_SHAPES = ((2, 16, 64), (2, 8, 96))
 # The artifact, reference-checkpoint, training-CLI and --device_aug phases,
 # and phase_zoo's exports, run XLS-R 300M's widths at this many encoder
 # layers: phase_zoo drives the CLI's training again at all 24, and the cost
@@ -362,10 +386,10 @@ def phase_kernel_vs_plain(K, A):
     g = torch.Generator(device="cuda").manual_seed(0)
     worst = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for t in (199, 201, 1024):
+        for (b, h, d), t in ((bhd, t) for bhd in HEAD_SHAPES for t in (199, 201, 1024)):
             for kv_len in (None, t - 13):
-                shape = (2, 16, t, 64)
-                q = (torch.randn(shape, device="cuda", generator=g) / 8).to(dtype)
+                shape = (b, h, t, d)
+                q = (torch.randn(shape, device="cuda", generator=g) * d ** -0.5).to(dtype)
                 k = torch.randn(shape, device="cuda", generator=g).to(dtype)
                 v = torch.randn(shape, device="cuda", generator=g).to(dtype)
                 o, lse = K.flash_attn_fwd(q, k, v, kv_len)
@@ -375,12 +399,12 @@ def phase_kernel_vs_plain(K, A):
                 el = (lse - rlse).abs().max().item()
                 tol = TOL[dtype]
                 ok = eo <= tol["o"] and el <= tol["lse"]
-                print(f"[kernel] {str(dtype):15s} T={t:5d} kv_len={kv_len!s:5s} "
+                print(f"[kernel] {str(dtype):15s} H={h:2d} D={d:3d} T={t:5d} kv_len={kv_len!s:5s} "
                       f"O err {eo:.3e} (tol {tol['o']:.0e})  LSE err {el:.3e} "
                       f"(tol {tol['lse']:.0e})  {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise AssertionError(f"kernel disagrees with its plain version "
-                                         f"({dtype}, T={t}, kv_len={kv_len})")
+                                         f"({dtype}, {shape}, kv_len={kv_len})")
                 worst = max(worst, eo)
     return worst
 
@@ -1491,7 +1515,7 @@ def _fwd_entry(K, A, shape, card, g, KB=None):
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
-    q = (torch.randn(shape, device="cuda", generator=g) / 8).bfloat16()
+    q = (torch.randn(shape, device="cuda", generator=g) * shape[-1] ** -0.5).bfloat16()
     k = torch.randn(shape, device="cuda", generator=g).bfloat16()
     v = torch.randn(shape, device="cuda", generator=g).bfloat16()
     o, lse = K.flash_attn_fwd(q, k, v)
@@ -1554,7 +1578,7 @@ def phase_times(K, A, card, KB=None):
 
 
 def _bwd_inputs(shape, dtype, g):
-    q = (torch.randn(shape, device="cuda", generator=g) / 8).to(dtype)
+    q = (torch.randn(shape, device="cuda", generator=g) * shape[-1] ** -0.5).to(dtype)
     k, v, do = (torch.randn(shape, device="cuda", generator=g).to(dtype) for _ in range(3))
     return q, k, v, do
 
@@ -1598,11 +1622,12 @@ def _bwd_check(K, A, q, k, v, do, kv_len):
 def phase_backward_vs_plain(K, A):
     g = torch.Generator(device="cuda").manual_seed(2)
     for dtype in (torch.bfloat16, torch.float32):
-        for t in (199, 201, 1024):
+        for (b, h, d), t in ((bhd, t) for bhd in HEAD_SHAPES for t in (199, 201, 1024)):
             for kv_len in (None, t - 13):
-                inputs = _bwd_inputs((2, 16, t, 64), dtype, g)
+                inputs = _bwd_inputs((b, h, t, d), dtype, g)
                 _, msg, _ = _bwd_check(K, A, *inputs, kv_len)
-                print(f"[backward] {str(dtype):15s} T={t:5d} kv_len={kv_len!s:5s} {msg}  ok")
+                print(f"[backward] {str(dtype):15s} H={h:2d} D={d:3d} T={t:5d} "
+                      f"kv_len={kv_len!s:5s} {msg}  ok")
 
 
 def phase_autograd(K, A):
@@ -2581,25 +2606,306 @@ def phase_zoo(K, card, tmp):
 
 
 
+DISTILL = dict(train=6, dev=2, eval_utts=16, batch=16, teacher_seed=4321, seed=1234,
+               min_lr=1e-5, max_lr=1e-4)
+
+
+def _digest(model) -> str:
+    """sha256 of every parameter's bytes, in the model's order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, p in model.named_parameters():
+        h.update(name.encode())
+        h.update(p.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _distill_golden(K):
+    """The committed tiny distillation golden (``tests/golden/mini_distill*``,
+    written by the JAX package) on the card, fp32 with TF32 off: the teacher
+    from its ``.ckpt``, the one-layer student of head dim 96 from
+    ``tests/seeded_params.seeded_tree``, two steps through the kernels, each
+    step's metrics and then the student's scores within 1e-4 of the golden;
+    per step 2 teacher and 1 student forward launches, 1 dq and 1 dk/dv."""
+    from scl_deepfake_audio_detection_torch.dsp.pad import pad_eval
+    from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.train import checkpoint as ckpt
+    from scl_deepfake_audio_detection_torch.train import distill as D
+    from scl_deepfake_audio_detection_torch.train.engine import score_step
+    from scl_deepfake_audio_detection_torch.train.optim import set_learning_rate
+
+    spec = importlib.util.spec_from_file_location(
+        "seeded_params", os.path.join(ROOT, "tests", "seeded_params.py"))
+    seeded = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(seeded)
+    tree, meta = ckpt.load(os.path.join(GOLDEN_DIR, "mini_distill.ckpt"))
+    with open(os.path.join(GOLDEN_DIR, "mini_distill_scores.txt")) as f:
+        want = np.array([[float(v) for v in ln.split()[1:]] for ln in f], np.float64)
+    emb = meta["emb_dim"]
+    teacher = LinearNLL(ssl=getattr(XLSRConfig, meta["teacher_ssl"])(), emb_dim=emb,
+                        device="cuda")
+    student = LinearNLL(ssl=XLSRConfig.tiny(**meta["student_ssl"]), emb_dim=emb,
+                        dropout=meta["student_dropout"], device="cuda")
+    eng = D.DistillEngine(teacher, student, D.DistillConfig(
+        alpha=meta["alpha"], temperature=meta["temperature"],
+        emb_loss_weight=meta["emb_loss_weight"]))
+    eng.init_state(tree["params"], seeded.seeded_tree(student, meta["student_seed"]))
+    set_learning_rate(eng.optimizer, meta["lr"])
+    rng = np.random.default_rng(meta["batch_seed"])
+    labels = np.tile([1.0, 1.0, 0.0, 0.0], (2, 1)).astype(np.float32)
+    batches = [{"wav": (0.2 * rng.normal(size=meta["batch_shape"])).astype(np.float32),
+                "labels": labels} for _ in range(meta["steps"])]
+    K.reset_launches()
+    err_m = 0.0
+    for i, (batch, golden) in enumerate(zip(batches, meta["metrics"])):
+        got = eng.run_epoch([batch], epoch=i)
+        if sorted(got) != sorted(golden):
+            raise AssertionError(f"distillation golden: metrics {sorted(got)}")
+        err_m = max(err_m, max(abs(got[k] - golden[k]) for k in golden))
+    wav = np.stack([pad_eval(w, "repeat", 16000) for w in golden_wavs()])
+    scores = score_step(student, wav).double().cpu().numpy()
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    err_s = float(np.abs(scores - want).max())
+    t_layers, s_layers = teacher.ssl.cfg.encoder_layers, student.ssl.cfg.encoder_layers
+    steps = meta["steps"]
+    expect = {"flash_attn_fwd": steps * (t_layers + s_layers) + s_layers,
+              "flash_attn_bwd_dq": steps * s_layers, "flash_attn_bwd_dkv": steps * s_layers}
+    print(f"[distill] golden: teacher D={teacher.ssl.cfg.head_dim}, student "
+          f"D={student.ssl.cfg.head_dim}, fp32 on the card, {steps} steps: max |metric - "
+          f"golden| {err_m:.3e}, max |score - golden| {err_s:.3e} (tol {GOLDEN_ATOL:.0e}); "
+          f"launches {launches}")
+    if err_m > GOLDEN_ATOL or err_s > GOLDEN_ATOL or launches != expect:
+        raise AssertionError(f"the distillation golden is not reproduced on the card "
+                             f"(launches {launches}, expected {expect})")
+
+
+def _codec_paths() -> str:
+    """Which path the codec augmentations take on this host: the native
+    mp3 / opus / G.722 round trips through the ffmpeg libraries, or the
+    G.711 fallback (host DSP: reported, not asserted)."""
+    from scl_deepfake_audio_detection_torch import native
+    from scl_deepfake_audio_detection_torch.dsp import codec
+
+    x = (0.1 * np.random.default_rng(0).normal(size=16000)).astype(np.float32)
+    paths = []
+    for name, fn in (("mp3", lambda: codec.codec_roundtrip(x, 16000, "mp3", "64k")),
+                     ("opus", lambda: codec.codec_roundtrip(x, 16000, "opus", "24k")),
+                     ("g722", lambda: codec.g722_roundtrip(x, 16000))):
+        try:
+            fn()
+            paths.append(f"{name} native")
+        except codec.CodecUnavailable:
+            paths.append(f"{name} unavailable")
+    fallback = "" if native.codec_available() else (
+        f" (codec library: {native.BUILD_ERRORS.get('scl_codec', 'not built')!s:.120})")
+    return (", ".join(paths) + "; where mp3 or opus is unavailable codec_wrapper falls back "
+            "to G.711, and where G.722 is telephone_effect to mu-law" + fallback)
+
+
+def phase_distill(K, card, tmp):
+    """--distill_from through the port's CLI at full width: a seeded
+    ``wav2vec2_linear_nll`` teacher at XLS-R 300M (24 layers) written once as
+    a ``.ckpt``; the student is conf-3's model at ``student_base`` (12 x 768,
+    8 heads: head dim 96), 3 steps of [2, 11, 64000] bf16 view batches.
+    Launches per step, derived from the code: the teacher's eval forward
+    runs each of its 24 layers once (under ``torch.no_grad``); the student
+    trains under remat 'attn' (the CLI's ``XLSRConfig(remat=True)``), whose
+    ``torch.utils.checkpoint`` over each layer's attention block runs that
+    block again in the backward: 2 forwards a student layer, then one dq and
+    one dk/dv; so 24 + 2 x 12 forwards, 12 dq and 12 dk/dv a step.  The
+    teacher's parameters are bit-unchanged (a sha256 before and after),
+    the student moved, every metric is finite, ``student_last.ckpt`` holds
+    the trained student and scores through ``--eval --model_path
+    --ssl_preset student_base`` (12 forwards at head dim 96 per scoring
+    forward).  Then the committed distillation golden on the card."""
+    from scl_deepfake_audio_detection_torch import cli
+    from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
+    from scl_deepfake_audio_detection_torch.models.params import to_jax
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.train import checkpoint as ckpt
+    from scl_deepfake_audio_detection_torch.train import distill as D
+    from scl_deepfake_audio_detection_torch.utils.audio_io import save_wav
+    from scl_deepfake_audio_detection_torch.utils.tree import flatten
+
+    t_phase = time.perf_counter()
+    c = DISTILL
+    db = os.path.join(tmp, "db")
+    cfg_path, _ = _cli_database(db, train=c["train"], dev=c["dev"])
+    rng = np.random.default_rng(c["seed"])
+    utts = [f"eval{i:02d}.wav" for i in range(c["eval_utts"])]
+    for i, u in enumerate(utts):
+        n = 64600 if i % 4 else 64600 // 3
+        save_wav(os.path.join(db, "eval", u), (0.1 * rng.normal(size=n)).astype(np.float32))
+    with open(os.path.join(db, "scp", "test.lst"), "w") as f:
+        f.write("\n".join(utts) + "\n")
+
+    # 1. the teacher, written once
+    t0 = time.perf_counter()
+    t_path = os.path.join(tmp, "teacher.ckpt")
+    teacher = LinearNLL(ssl=XLSRConfig.xlsr_300m(), device="cuda", seed=c["teacher_seed"])
+    n_teacher = sum(p.numel() for p in teacher.parameters())
+    ckpt.save(t_path, {"params": to_jax(teacher)})
+    del teacher
+    torch.cuda.empty_cache()
+    print(f"[distill] teacher: seeded wav2vec2_linear_nll at xlsr_300m "
+          f"({n_teacher / 1e6:.1f}M parameters) written to a .ckpt of "
+          f"{os.path.getsize(t_path) / 2**30:.3f} GiB in {time.perf_counter() - t0:.2f}s")
+
+    # 2. --distill_from through the CLI, observed: the engine, the teacher's
+    # digest and the student before the first step, CUDA events around each
+    # step and each teacher forward
+    seen = {"engine": None, "steps": [], "teacher": [], "ends": []}
+    init, step = D.DistillEngine.init_state, D.DistillEngine.step
+
+    def init_hook(self, *a, **kw):
+        out = init(self, *a, **kw)
+        seen.update(engine=self, digest=_digest(self.teacher),
+                    s0={n: p.detach().clone() for n, p in self.student.named_parameters()})
+        apply = self.teacher.apply
+
+        def timed_apply(*aa, **kk):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            res = apply(*aa, **kk)
+            ev[1].record()
+            seen["teacher"].append(ev)
+            return res
+
+        self.teacher.apply = timed_apply
+        return out
+
+    def step_hook(self, *a, **kw):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        m = step(self, *a, **kw)
+        ev[1].record()
+        torch.cuda.synchronize()
+        seen["steps"].append(ev)
+        seen["ends"].append(time.perf_counter())
+        return m
+
+    out_dir = os.path.join(tmp, "out")
+    argv = ["--distill_from", t_path, "--teacher_preset", "xlsr_300m",
+            "--ssl_preset", "student_base", "--config", cfg_path, "--database_path", db,
+            "--compute_dtype", "bfloat16", "--num_epochs", "1", "--batch_size", "2",
+            "--seed", str(c["seed"]), "--min_lr", str(c["min_lr"]), "--max_lr", str(c["max_lr"]),
+            "--out_dir", out_dir, "--device", "cuda"]
+    D.DistillEngine.init_state, D.DistillEngine.step = init_hook, step_hook
+    K.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        D.DistillEngine.init_state, D.DistillEngine.step = init, step
+    wall = time.perf_counter() - t0
+    launches, peak = dict(K.LAUNCHES), torch.cuda.max_memory_allocated()
+    if rc != 0:
+        raise AssertionError(f"--distill_from exited {rc}")
+    eng = seen["engine"]
+    t_layers = eng.teacher.ssl.cfg.encoder_layers
+    s_layers = eng.student.ssl.cfg.encoder_layers
+    steps = len(seen["steps"])
+    want = {"flash_attn_fwd": steps * (t_layers + 2 * s_layers),
+            "flash_attn_bwd_dq": steps * s_layers, "flash_attn_bwd_dkv": steps * s_layers}
+    step_ms = [a.elapsed_time(b) for a, b in seen["steps"]]
+    teacher_ms = [a.elapsed_time(b) for a, b in seen["teacher"]]
+    ends = seen["ends"]
+    wall_ms = (ends[-1] - ends[0]) / (len(ends) - 1) * 1e3
+    share = [t / s for t, s in zip(teacher_ms[1:], step_ms[1:])]
+    print(f"[distill] {card}: --distill_from, teacher XLS-R 300M ({t_layers} layers, D="
+          f"{eng.teacher.ssl.cfg.head_dim}), student student_base ({s_layers} layers, D="
+          f"{eng.student.ssl.cfg.head_dim}), bf16, {steps} steps of [2, 11, 64000]: "
+          f"{wall:.2f}s wall (models, teacher load and checkpoint included); step ms (CUDA "
+          f"events) {', '.join(f'{v:.2f}' for v in step_ms)}; after the first "
+          f"{wall_ms:.2f} ms a step on the host's clock")
+    print(f"[distill] {card}: the teacher's forward (CUDA events) "
+          f"{', '.join(f'{v:.2f}' for v in teacher_ms)} ms, "
+          f"{', '.join(f'{100 * v:.1f}' for v in share)} % of its step after the first; "
+          f"peak memory {peak / 2**30:.3f} GiB; launches {launches} (expected {want})")
+    if launches != want or steps != -(-c["train"] // 2):
+        raise AssertionError(f"--distill_from launched {launches}, expected {want}")
+
+    # 3. the teacher is bit-unchanged, the student moved and is what
+    # student_last.ckpt holds, every metric finite
+    same_teacher = _digest(eng.teacher) == seen["digest"]
+    moved = max((p.detach() - seen["s0"][n]).abs().max().item()
+                for n, p in eng.student.named_parameters())
+    (run_dir,) = os.listdir(out_dir)
+    student_path = os.path.join(out_dir, run_dir, "student_last.ckpt")
+    tree, extra = ckpt.load(student_path)
+    flat_saved, flat_file = flatten(to_jax(eng.student)), flatten(tree["params"])
+    same_file = sorted(flat_saved) == sorted(flat_file) and all(
+        np.array_equal(flat_saved[k], flat_file[k]) for k in flat_saved)
+    metrics = {k: v for k, v in extra.items() if k != "epoch"}
+    finite = all(np.isfinite(v) for v in metrics.values())
+    print(f"[distill] teacher sha256 unchanged {same_teacher}; student max |moved| "
+          f"{moved:.3e}; student_last.ckpt ({os.path.getsize(student_path) / 2**30:.3f} GiB) "
+          f"equals the trained student {same_file}; metrics "
+          f"{ {k: round(v, 6) for k, v in sorted(metrics.items())} } finite {finite}")
+    if not (same_teacher and moved > 0 and same_file and finite):
+        raise AssertionError("distillation: the teacher changed, the student did not move, "
+                             "student_last.ckpt differs or a metric is not finite")
+    del eng, seen, flat_saved
+    torch.cuda.empty_cache()
+
+    # 4. the student scores through --eval
+    ev_path = os.path.join(tmp, "student_scores.txt")
+    K.reset_launches()
+    t0 = time.perf_counter()
+    rc = cli.main(["--eval", "--model_path", student_path, "--ssl_preset", "student_base",
+                   "--config", cfg_path, "--database_path", db, "--compute_dtype", "bfloat16",
+                   "--batch_size", str(c["batch"]), "--num_workers", "4",
+                   "--eval_output", ev_path, "--device", "cuda"])
+    torch.cuda.synchronize()
+    ev_wall = time.perf_counter() - t0
+    ev_launches = dict(K.LAUNCHES)
+    forwards = math.ceil(len(utts) / c["batch"])
+    ev_want = {"flash_attn_fwd": s_layers * forwards, "flash_attn_bwd_dq": 0,
+               "flash_attn_bwd_dkv": 0}
+    rows = _read_rows(ev_path)
+    scores = np.array([[float(v) for v in r[1:]] for r in rows])
+    print(f"[distill] --eval --model_path student_last.ckpt --ssl_preset student_base: "
+          f"{len(rows)} rows in {ev_wall:.2f}s wall, {forwards} forwards of [{c['batch']}, "
+          f"64600] (D={XLSRConfig.student_base().head_dim}), launches {ev_launches}, scores in "
+          f"[{scores.min():.4f}, {scores.max():.4f}]")
+    if (rc != 0 or sorted(r[0] for r in rows) != sorted(utts) or ev_launches != ev_want
+            or not np.isfinite(scores).all()):
+        raise AssertionError(f"the student's --eval failed (rc {rc}, launches {ev_launches})")
+
+    _distill_golden(K)
+    print(f"[distill] codec augmentations on this host: {_codec_paths()}")
+    stats = {"step_ms": step_ms, "host_ms_per_step": wall_ms, "teacher_fwd_ms": teacher_ms,
+             "teacher_share": share, "peak_gib": peak / 2**30, "wall_s": wall}
+    print(f"[distill] phase in {time.perf_counter() - t_phase:.2f}s")
+    return {"distill": launches, "distill_student_eval": ev_launches}, stats
+
+
 def _bound(nbytes, flops):
     bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
     return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations", \
         f"{nbytes / 1e6:.2f} MB -> {bytes_ms:.4f} ms, {flops / 1e9:.3f} GFLOP -> {flops_ms:.4f} ms"
 
 
-def phase_backward_times(K, A, card, KB=None):
-    """Each backward kernel at the train shape against its plain version,
-    the sdpa backward and its bound (the forward's entry at that shape
-    too); with ``KB``, the earlier build's kernels too.  The dq kernel is
-    timed with its D; torch's D is timed alone beside it."""
+def phase_backward_times(K, A, card, KB=None, shape=TRAIN_SHAPE):
+    """Each backward kernel at ``shape`` (the train shape, or the
+    distillation student's) against its plain version, the sdpa backward
+    and its bound (the forward's entry at that shape too); with ``KB``, the
+    earlier build's kernels too.  The dq kernel is timed with its D; torch's
+    D is timed alone beside it."""
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     g = torch.Generator(device="cuda").manual_seed(5)
-    out = {"flash_attn_fwd": _fwd_entry(K, A, TRAIN_SHAPE, card, g, KB)}
-    q, k, v, do = _bwd_inputs(TRAIN_SHAPE, torch.bfloat16, g)
+    out = {"flash_attn_fwd": _fwd_entry(K, A, shape, card, g, KB)}
+    q, k, v, do = _bwd_inputs(shape, torch.bfloat16, g)
     err, msg, err_delta = _bwd_check(K, A, q, k, v, do, None)
-    print(f"[backward] train shape {list(TRAIN_SHAPE)} bf16: {msg}")
+    print(f"[backward] at {list(shape)} bf16: {msg}")
     o, lse = K.flash_attn_fwd(q, k, v)
     _, delta = K.flash_attn_bwd_dq(q, k, v, o, do, lse)
     qr, kr, vr = (a.clone().requires_grad_() for a in (q, k, v))
@@ -2620,9 +2926,9 @@ def phase_backward_times(K, A, card, KB=None):
     d_graph = min(graph_ms(lambda: A._delta(o, do)) for _ in range(2))
     d_eager = cuda_ms(lambda: A._delta(o, do))
     print(f"[times] {card}: torch D = (dO.float() * O.float()).sum(-1) at "
-          f"{list(TRAIN_SHAPE)} bf16 (the port's D before the dq kernel computed it): "
+          f"{list(shape)} bf16 (the port's D before the dq kernel computed it): "
           f"{d_graph:.4f} ms graphed (eager {d_eager:.4f} ms)")
-    b, h, t, d = TRAIN_SHAPE
+    b, h, t, d = shape
     n = q.numel() * q.element_size()
     stats = 2 * b * h * t * 4  # L and D, fp32
     before_dq = None
@@ -2648,15 +2954,15 @@ def phase_backward_times(K, A, card, KB=None):
         times = time_kernel(kern, before)
         p2 = cuda_ms(plain)
         bound, by, detail = _bound(nbytes, flops)
-        print(f"[times] {card}: {name} {list(TRAIN_SHAPE)} bf16: {timing_line(times)}, "
+        print(f"[times] {card}: {name} {list(shape)} bf16: {timing_line(times)}, "
               f"plain {p1:.4f}/{p2:.4f} ms, sdpa backward (dq, dk, dv together) "
               f"{lib:.4f} ms, bound {bound:.4f} ms ({detail})")
-        out[name] = {"shape": list(TRAIN_SHAPE), "max_abs_err": err[name], **times,
+        out[name] = {"shape": list(shape), "max_abs_err": err[name], **times,
                      "plain_ms": min(p1, p2), "bound_ms": bound, "bound_by": by,
                      "library_ms": lib}
     out["flash_attn_bwd_dq"].update(delta_max_abs_err=err_delta, torch_delta_ms=d_graph,
                                     torch_delta_eager_ms=d_eager)
-    print(f"[times] {card}: at the train shape, sdpa (flash backend, graphed, best of 2) "
+    print(f"[times] {card}: at {list(shape)}, sdpa (flash backend, graphed, best of 2) "
           f"forward {sdpa_f:.4f} ms, forward + backward {sdpa_fb:.4f} ms; eager "
           f"{eager_f:.4f} and {eager_fb:.4f} ms")
     return out
@@ -2755,20 +3061,28 @@ def main() -> int:
         zoo_launches, zoo, zoo_stats = phase_zoo(K, card, tmp)
     lap("zoo")
     torch.cuda.empty_cache()
-    times = phase_backward_times(K, A, card, KB)
+    with tempfile.TemporaryDirectory() as tmp:
+        distill_launches, distill_stats = phase_distill(K, card, tmp)
+    lap("distill")
+    torch.cuda.empty_cache()
+    train_times = phase_backward_times(K, A, card, KB, TRAIN_SHAPE)
+    student_times = phase_backward_times(K, A, card, KB, STUDENT_SHAPE)
     lap("backward_times")
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f}s; launches on the "
           f"eval main path {eval_launches}, in the eval modes {modes_launches}, serving "
           f"{serve_launches}, from the exported scorer {export_launches}, on the "
           f"training main path {launches}, through the training CLI {cli_launches}, with "
           f"--device_aug {aug_launches}; remat per step "
-          f"{ {k: v['launches'] for k, v in remat.items()} }; the model zoo {zoo}")
-    # Each entry's launches belong to this slice's main path, the model zoo
-    # (AASIST and ResNet-18 through the CLI: training, --eval, --serve and
-    # --eval --from_export); its times to the training shape of XLS-R 300M
-    # that the zoo's train steps share ([22, 16, 199, 64]).
-    # The other paths' launches sit beside them, and the forward's
-    # eval-shape times under "eval".
+          f"{ {k: v['launches'] for k, v in remat.items()} }; the model zoo {zoo}; "
+          f"distillation {distill_launches}")
+    # Each entry's launches belong to this slice's main path, distillation
+    # through the CLI (--distill_from: the XLS-R 300M teacher's forwards at
+    # [22, 16, 199, 64], the student_base student's forwards and backward at
+    # [22, 8, 199, 96]); its times to XLS-R 300M's training shape, as in the
+    # entries of the slices before, so that they compare across commits, with
+    # the times at the student's shape, where all three kernels run on this
+    # path, under "student_shape".  The other paths' launches sit beside
+    # them, and the forward's eval-shape times under "eval".
     kernels = []
     for name in K.KERNELS:
         entry = {
@@ -2776,8 +3090,8 @@ def main() -> int:
             "route": "cuda",
             "source": f"scl_deepfake_audio_detection_torch/csrc/{K.SOURCES[name]}",
             "replaces": REPLACES[name],
-            "path": "zoo",
-            "launches": zoo[name],
+            "path": "distill",
+            "launches": distill_launches["distill"][name],
             "launches_by_path": {"eval": eval_launches[name],
                                  "eval_modes": modes_launches[name],
                                  "serve": serve_launches["serve"][name],
@@ -2788,11 +3102,15 @@ def main() -> int:
                                  "train_cli_device_aug": aug_launches[name],
                                  **{f"remat_{k}_per_step": v["launches"][name]
                                     for k, v in remat.items()},
-                                 **{f"zoo_{k}": v[name] for k, v in zoo_launches.items()}},
-            **times[name],
+                                 **{f"zoo_{k}": v[name] for k, v in zoo_launches.items()},
+                                 "zoo": zoo[name],
+                                 **{k: v[name] for k, v in distill_launches.items()}},
+            **train_times[name],
+            "student_shape": student_times[name],
         }
         if name == "flash_attn_fwd":
             entry["zoo"] = zoo_stats
+            entry["distill"] = distill_stats
             entry["eval"] = {"launches": eval_launches[name], **eval_fwd}
             entry["eval_modes"] = {"launches": modes_launches[name], **modes_fwd}
             entry["serve"] = {"launches": serve_launches["serve"][name],

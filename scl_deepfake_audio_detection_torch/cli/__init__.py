@@ -11,7 +11,9 @@ and verifies a scoring artifact (``--export_model``, ``--verify_export``),
 serves scores (``--serve`` on stdin, ``--serve_http``), scores an eval list
 (``--eval``, with ``--predict``, ``--emb``, ``--long_audio``,
 ``--resume_eval``, ``--decode_cache``; both also ``--from_export``) or
-trains (no mode flag; ``--device_aug`` composes the views on the device),
+trains (no mode flag; ``--device_aug`` composes the views on the device;
+``--distill_from`` trains the configured model as a student of a frozen
+teacher),
 in the fixed order of the JAX CLI's dispatch.  The modes that build no
 model come first: they never touch the card.  Every mode and option of a
 later slice exits 2 with "not ported yet", before a model is built or the
@@ -19,7 +21,7 @@ card is touched.
 
   ``cli.analyze``   checkpoint averaging and score analysis (no model, no device)
   ``cli.context``   the shared runtime: config, device, model or artifact, engine
-  ``cli.train``     training, --show_params and --warm_cache
+  ``cli.train``     training, distillation, --show_params and --warm_cache
   ``cli.export``    artifacts, reference checkpoints and the parity check
   ``cli.serve``     the stdin and HTTP scoring services
   ``cli.evaluate``  eval-list scoring

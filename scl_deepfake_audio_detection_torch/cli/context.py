@@ -11,9 +11,10 @@ mode makes optimizer state:
    ``--ssl_checkpoint``'s SSL weights over it, or the parameters of
    ``--model_path``: a checkpoint of either package or a reference
    ``epoch_N.pth``) and its ``Engine``.
-3. ``init_state``: the optimizer (training only) and the resume of a full
-   train state that ``--model_path`` names (a ``last.ckpt`` of either
-   package).
+3. ``init_state``: the optimizer (training only; distillation makes its
+   own) and the resume of a full train state that ``--model_path`` names
+   (a ``last.ckpt`` of either package; under ``--distill_from`` it seeds
+   only the student's parameters).
 """
 
 from __future__ import annotations
@@ -180,9 +181,13 @@ def init_state(ctx: RunContext) -> None:
     # forward-only modes make no optimizer state
     training = not (args.eval or args.serve or args.serve_http is not None
                     or args.parity_check or args.export_model or args.verify_export)
-    if training and ctx.scorer is None:
+    # distillation makes its own optimizer (train/distill.DistillEngine), and
+    # a full train state as --model_path only seeds the student's parameters
+    # (load_model_state put them in the model)
+    training_engine = training and not args.distill_from
+    if training_engine and ctx.scorer is None:
         ctx.engine.init_state()
-    if ctx.resume_path is not None and training:
+    if ctx.resume_path is not None and training_engine:
         _, ctx.resume_best, _ = ckpt.load_train_state(
             ctx.resume_path, ctx.model, ctx.engine.optimizer)
         ctx.resume_counter = int(ctx.resume_extra.get("es_counter", 0))

@@ -17,7 +17,6 @@ from scl_deepfake_audio_detection_torch.utils.config import RawBoostConfig
 
 # dest -> (the value that leaves the flag off, the slice that ports it)
 LATER_SLICES = {
-    "distill_from": (None, "Slice H"),
     "multihost": (False, "Slice H"),
     "mesh": (None, "Slice H"),
     "zero1": (False, "Slice H"),
@@ -28,6 +27,13 @@ _PORT_HELP = {
     "profile_dir": "write a torch.profiler trace of the first epoch here",
     "device_aug": "compose the view batches on the device (RawBoost, noise and "
                   "reverb over the whole batch); the host only decodes",
+    "distill_from": "train the configured model as a distillation student of this "
+                    "frozen teacher checkpoint (a .ckpt of either package or a reference "
+                    ".pth; the teacher is wav2vec2_linear_nll at --teacher_preset): each "
+                    "epoch sets the learning rate the training mode sets for it (the JAX "
+                    "CLI sets none) and writes <out>/<tag>/student_last.ckpt; eval, serve "
+                    "or export it with --model_path and the student's --ssl_preset.  "
+                    "Students without batch-norm state only",
     "export_model": "export the scoring function as a standalone artifact (a "
                     "torch.export program with a symbolic batch that runs on the "
                     "CPU and on the card, the weights as arguments) and exit; "

@@ -1,14 +1,16 @@
 """Training CLI modes: SCL view-batch training with early stopping and
-full-state checkpoints (the reference ``02_train.sh`` flow),
-``--show_params`` and ``--warm_cache``.
+full-state checkpoints (the reference ``02_train.sh`` flow), distillation
+(``--distill_from``), ``--show_params`` and ``--warm_cache``.
 
 Counterpart of ``scl_deepfake_audio_detection_tpu/cli/train.py``.  With host
 augmentation ``SCLViewBatchBuilder`` composes each anchor group in numpy on
 ``TrainLoader``'s worker threads; with ``--device_aug`` the workers only
 decode and co-crop (``DeviceAugTrainLoader``) and
 ``data/device_pipeline.DeviceViewComposer`` composes the views on the
-model's device.  ``Engine.fit`` trains there.  It prints the JAX CLI's
-lines: trial counts, the model tag, one line per epoch and the total time.
+model's device.  ``Engine.fit`` trains there, or under ``--distill_from``
+``train/distill.DistillEngine`` on the same batches.  It prints the JAX
+CLI's lines: trial counts, the model tag, one line per epoch and the total
+time.
 """
 
 from __future__ import annotations
@@ -104,9 +106,6 @@ def run(args, ctx: RunContext) -> int:
     save_dir = os.path.join(args.out_dir, train_cfg.model_tag())
     os.makedirs(save_dir, exist_ok=True)
     print(f"model tag: {train_cfg.model_tag()}")
-    tb_dir = args.tensorboard_dir or os.path.join(save_dir, "logs")
-    print(f"tensorboard scalars: {tb_dir}" if tensorboard_available() else
-          "tensorboard scalars: not written (torch.utils.tensorboard does not import)")
 
     epoch_counter = {"n": train_cfg.start_epoch}
 
@@ -125,6 +124,13 @@ def run(args, ctx: RunContext) -> int:
     def dev_batches():  # epoch -1: the same dev views every epoch and across resumes
         return composed(dev_loader.epoch(0), -1) if composer else dev_loader.epoch(0)
 
+    if args.distill_from:
+        return _run_distill(args, ctx, train_batches, save_dir)
+
+    tb_dir = args.tensorboard_dir or os.path.join(save_dir, "logs")
+    print(f"tensorboard scalars: {tb_dir}" if tensorboard_available() else
+          "tensorboard scalars: not written (torch.utils.tensorboard does not import)")
+
     def log_fn(epoch, record):
         eer = record.get("val_eer")  # under --early_metric eer; None for one class
         eer_s = f"val_eer={eer:.2f}% " if isinstance(eer, float) else ""
@@ -139,6 +145,64 @@ def run(args, ctx: RunContext) -> int:
                log_fn=log_fn, tensorboard_dir=tb_dir, profile_dir=args.profile_dir,
                resume_best=ctx.resume_best, resume_counter=ctx.resume_counter)
     print(f"Total training time: {time.time() - t0}s")
+    return 0
+
+
+def _run_distill(args, ctx: RunContext, train_batches, save_dir) -> int:
+    """--distill_from: the configured model (the student) learns from a
+    frozen ``wav2vec2_linear_nll`` teacher at ``--teacher_preset``, read from
+    a checkpoint of either package (``.ckpt``, with its batch-norm buffers
+    where it has them) or a reference ``epoch_N.pth``.  Each epoch sets the
+    learning rate ``Engine.fit`` would set for it, runs, prints its metrics
+    and writes ``student_last.ckpt``."""
+    import numpy as np
+
+    from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
+    from scl_deepfake_audio_detection_torch.models.params import to_jax
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.train import checkpoint as ckpt
+    from scl_deepfake_audio_detection_torch.train import distill as D
+    from scl_deepfake_audio_detection_torch.train.optim import cyclic_exp_lr, set_learning_rate
+
+    train_cfg = ctx.train_cfg
+    teacher_preset = getattr(XLSRConfig, args.teacher_preset)
+    teacher = LinearNLL(ssl=teacher_preset(compute_dtype=args.compute_dtype), device=ctx.device)
+    if args.distill_from.endswith(".pth"):
+        from scl_deepfake_audio_detection_torch.models import convert
+
+        sd = ckpt.load_reference_head_checkpoint(args.distill_from)
+        t_params, _ = convert.from_reference_model_checkpoint(sd, like=teacher.ssl.cfg)
+        t_buffers = {}
+    else:
+        tree, _ = ckpt.load(args.distill_from)
+        t_params = tree["params"] if "params" in tree else tree
+        t_buffers = tree.get("buffers") or {}
+    dcfg = D.DistillConfig(temperature=args.distill_temp, alpha=args.distill_alpha,
+                           emb_loss_weight=args.distill_emb_w,
+                           weight_decay=args.weight_decay)
+    try:
+        deng = D.DistillEngine(teacher, ctx.model, dcfg, seed=args.seed)
+    except ValueError as e:  # a BN student needs the full Engine
+        raise CliError(2, str(e))
+    deng.init_state(t_params, teacher_buffers=t_buffers)
+    t0 = time.time()
+    for epoch in range(train_cfg.start_epoch, train_cfg.start_epoch + train_cfg.num_epochs):
+        te = time.time()
+        # the JAX CLI leaves the rate at 0 here, so its student never moves
+        # (ROADMAP.md, faults); the port sets the rate Engine.fit sets
+        set_learning_rate(deng.optimizer, cyclic_exp_lr(epoch, train_cfg.min_lr,
+                                                        train_cfg.max_lr))
+        metrics = deng.run_epoch(train_batches(), epoch)
+        print(f"epoch {epoch}: " + " ".join(f"{k}={v:.4f}" for k, v in sorted(metrics.items()))
+              + f" ({time.time() - te:.1f}s)")
+        if not all(np.isfinite(v) for v in metrics.values()):
+            print("non-finite distillation metrics; stopping", file=sys.stderr)
+            return 1
+        ckpt.save(os.path.join(save_dir, "student_last.ckpt"), {"params": to_jax(ctx.model)},
+                  extra={"epoch": epoch, **{k: float(v) for k, v in metrics.items()}})
+    print(f"Total distillation time: {time.time() - t0}s; student at "
+          f"{os.path.join(save_dir, 'student_last.ckpt')} — eval/serve/"
+          f"export it with --model_path + --ssl_preset {args.ssl_preset}")
     return 0
 
 

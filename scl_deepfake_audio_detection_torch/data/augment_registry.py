@@ -184,14 +184,22 @@ def freq_mask_wrapper(wav, rng, res, utt_id=None):
 
 
 @AUGMENTATIONS.register("telephone_wrapper", aliases=("telephone",))
-def telephone_wrapper(wav, rng, res, utt_id=None):
-    """Telephone channel (band-pass and G.711 companding): needs the port's
-    ``dsp/codec.py``."""
-    raise NotImplementedError("augmentation 'telephone_wrapper' not ported yet (Slice C/H)")
+@_cached("telephone")
+def telephone_wrapper(wav, rng, res):
+    """Telephone channel: 300-3400 Hz band-pass and a G.711 companding
+    round trip, the law drawn from ``rng`` (``dsp/codec.telephone_effect``)."""
+    from scl_deepfake_audio_detection_torch.dsp.codec import telephone_effect
+
+    law = "alaw" if rng.integers(2) == 0 else "ulaw"
+    return telephone_effect(wav, sr=res.sample_rate, encoding=law)
 
 
 @AUGMENTATIONS.register("codec_wrapper", aliases=("codec",))
-def codec_wrapper(wav, rng, res, utt_id=None):
-    """Lossy codec round trip: needs the port's ``dsp/codec.py`` and its
-    native codec library."""
-    raise NotImplementedError("augmentation 'codec_wrapper' not ported yet (Slice C/H)")
+@_cached("codec")
+def codec_wrapper(wav, rng, res):
+    """Lossy codec round trip (reference ``wav_codec``: a random mp3 or opus
+    bitrate through the native codec library; G.711 where no codec backend
+    exists, ``dsp/codec.random_codec``)."""
+    from scl_deepfake_audio_detection_torch.dsp.codec import random_codec
+
+    return random_codec(wav, rng, sr=res.sample_rate)

@@ -118,6 +118,17 @@ def step_seed(seed: int, epoch: int, step: int) -> int:
     return int(np.random.SeedSequence([seed, epoch, step]).generate_state(1, np.uint64)[0])
 
 
+def step_generator(seed: int, epoch: int, step: int, device) -> torch.Generator:
+    """The generator of one step's dropout draws on ``device``."""
+    return torch.Generator(device=device).manual_seed(step_seed(seed, epoch, step))
+
+
+def place_batch(batch: Batch, device) -> Batch:
+    """The numeric fields on the device; metadata (utt ids) stays out."""
+    return {k: torch.as_tensor(v).to(device, non_blocking=True)
+            for k, v in batch.items() if isinstance(v, (np.ndarray, torch.Tensor))}
+
+
 class Engine:
     """Owns the model, its optimizer and the epoch loop."""
 
@@ -149,13 +160,10 @@ class Engine:
         return self.model, self.optimizer
 
     def place_batch(self, batch: Batch) -> Batch:
-        """The numeric fields on the device; metadata (utt ids) stays out."""
-        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
-                for k, v in batch.items() if isinstance(v, (np.ndarray, torch.Tensor))}
+        return place_batch(batch, self.device)
 
     def step_generator(self, epoch: int, step: int) -> torch.Generator:
-        return torch.Generator(device=self.device).manual_seed(
-            step_seed(self.cfg.seed, epoch, step))
+        return step_generator(self.cfg.seed, epoch, step, self.device)
 
     # ----------------------------------------------------------------- steps
     def train_step(self, batch: Batch, generator: torch.Generator,

@@ -10,8 +10,9 @@
 - the JAX package reads the port's ``last.ckpt``, and the JAX ``--eval`` and
   the port's ``--eval`` score it within 1e-4 (fp32, summation order only);
 - ``--show_params`` prints the JAX CLI's table;
-- each flag of a later slice exits 2 with "not ported yet", and without
-  ``--device cpu`` and without a card the CLI exits 1 saying so.
+- each flag of a later slice exits 2 with "not ported yet" (``--distill_from``
+  now exits as the JAX CLI does), and without ``--device cpu`` and without
+  a card the CLI exits 1 saying so.
 """
 
 import contextlib
@@ -202,8 +203,40 @@ def test_later_slice_flags_exit_2(argv, where, capsys, mini_db, tmp_path, monkey
     slice, in any mode.  The BTSE config of Slice G2 (the cases that exited
     2 before it was ported) now runs each mode, on ``mini_db`` at conf-5's
     model: ``--eval --predict`` writes a row per utterance, training writes
-    ``last.ckpt``, ``--serve`` replies."""
+    ``last.ckpt``, ``--serve`` replies.  ``--distill_from`` (Slice H1) is
+    ported: with a ``.pth`` and a ``.ckpt`` teacher of the tiny preset and
+    conf-aasist's model as the student on ``mini_db``, the port exits as the
+    JAX CLI does (2, a batch-norm student), with the JAX CLI's stderr
+    (``tests/test_torch_distill_cli.py`` distils)."""
     flags = ["--device", "cpu", "--ssl_preset", "tiny"]
+    if "--distill_from" in argv:
+        from scl_deepfake_audio_detection_tpu.cli import main as jax_main
+        from scl_deepfake_audio_detection_torch.models import convert
+        from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
+        from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+        from scl_deepfake_audio_detection_torch.train import checkpoint as pckpt
+
+        import seeded_params
+
+        root, cfg, _ = mini_db
+        monkeypatch.chdir(tmp_path)  # the teacher's relative path
+        tree = seeded_params.seeded_tree(LinearNLL(ssl=XLSRConfig.tiny(), device="meta"), 1)
+        convert.save_reference_checkpoint(tree, "t.pth")
+        pckpt.save("t.ckpt", {"params": tree})
+        aasist = tmp_path / "aasist.yaml"
+        with open(os.path.join(REPO, "configs", "conf-aasist.yaml")) as f:
+            model = f.read().split("\ndata:", 1)[0]
+        with open(cfg) as f:
+            aasist.write_text(model + "\ndata:" + f.read().split("\ndata:", 1)[1])
+        run = argv + ["--ssl_preset", "tiny", "--teacher_preset", "tiny", "--config",
+                      str(aasist), "--database_path", str(root), "--out_dir", "out"]
+        capsys.readouterr()
+        rc = jax_main(run)
+        want = capsys.readouterr().err
+        assert port_main(run + ["--device", "cpu"]) == rc == 2
+        err = capsys.readouterr().err
+        assert err == want and "carries BN buffers" in err
+        return
     if where == "Slice G":
         root, cfg, utts = mini_db
         conf5 = tmp_path / "conf5.yaml"

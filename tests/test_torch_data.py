@@ -45,7 +45,8 @@ from scl_deepfake_audio_detection_torch.utils.audio_io import save_wav
 from scl_deepfake_audio_detection_torch.utils.registry import AUGMENTATIONS, DATASETS, MODELS
 
 NATIVE_ATOL = 1e-5  # as tests/test_native.py holds the native LnL to numpy
-NOT_PORTED_AUGS = {"telephone_wrapper", "telephone", "codec_wrapper", "codec"}
+# the codec augmentations (dsp/codec), which run the native codec library
+CODEC_AUGS = {"telephone_wrapper", "telephone", "codec_wrapper", "codec"}
 
 
 @pytest.fixture
@@ -210,8 +211,10 @@ def _resources(mod_res, cfg_cls, tmp, online, sub):
                    aug_dir=str(tmp / sub), online=online)
 
 
-@pytest.mark.parametrize("name", sorted(set(JAUG.names()) - NOT_PORTED_AUGS))
+@pytest.mark.parametrize("name", sorted(JAUG.names()))
 def test_every_registered_augmentation_matches_jax(no_native, tmp_path, name):
+    if name in CODEC_AUGS:
+        jax_native_ready.codec()  # both packages' codec libraries load, or neither
     x = _wav(21, 4000)
     fn, jfn = AUGMENTATIONS.get(name), JAUG.get(name)
     on = _resources(R.AugmentResources, C.RawBoostConfig, tmp_path, True, "on")
@@ -232,10 +235,19 @@ def test_every_registered_augmentation_matches_jax(no_native, tmp_path, name):
             fn(x, _rng(2), off, utt_id="spoof/u1.wav")
 
 
-@pytest.mark.parametrize("name", sorted(NOT_PORTED_AUGS))
+@pytest.mark.parametrize("name", sorted(CODEC_AUGS))
 def test_codec_augmentations_are_not_ported_yet(name):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        AUGMENTATIONS.get(name)(_wav(0), _rng(0), R.AugmentResources())
+    """The codec augmentations were the last ones not ported (Slice H): the
+    name resolves to the port's wrapper, which gives the JAX wrapper's audio
+    over eight seeds and takes as many draws from the generator."""
+    jax_native_ready.codec()
+    fn, jfn = AUGMENTATIONS.get(name), JAUG.get(name)
+    assert fn is AUGMENTATIONS.get(name.replace("_wrapper", "") + "_wrapper")
+    for seed in range(8):
+        rng, jrng = _rng(seed), _rng(seed)
+        _same(fn(_wav(seed), rng, R.AugmentResources()),
+              jfn(_wav(seed), jrng, JR.AugmentResources()))
+        assert rng.integers(1 << 30) == jrng.integers(1 << 30)
 
 
 # -------------------------------------------------------------- view batches

@@ -87,7 +87,7 @@ def test_flash_kernel_refuses_misaligned_inputs():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("d", [8, 64, 80, 128])
+@pytest.mark.parametrize("d", [8, 64, 80, 96, 120, 128])
 @pytest.mark.parametrize("t,kv_len", SEQS)
 def test_backward_kernels_match_plain_versions(dtype, d, t, kv_len):
     """dq and D from the dq kernel, dk and dv from the dk/dv kernel fed that
@@ -566,3 +566,81 @@ def test_btse_forward_and_train_step_on_the_card_match_the_cpu(kind):
         assert wav2bio(torch.from_numpy(x).cuda()).tolist() == meta["tokens"]
         np.testing.assert_allclose(score_step(model, x).double().cpu().numpy(), want,
                                    atol=1e-4, rtol=0)
+
+
+def _assert_grads_close(got, want):
+    """``got`` within rtol 1e-5 plus 5e-4 of each leaf's largest entry of
+    ``want`` (``tests/zoo_pins.py``'s rule, which imports JAX and so is not
+    imported here); a leaf whose largest entry is at most 5e-5 of its part's
+    (the SSL encoder or the head) is zero by structure and held to 5e-5 of
+    the part."""
+    part = lambda n: "ssl" if n.startswith("ssl.") else "head"  # noqa: E731
+    top = {}
+    for n, w in want.items():
+        top[part(n)] = max(top.get(part(n), 0.0), w.abs().max().item())
+    for n, w in want.items():
+        w = w.double()
+        s = w.abs().max().item()
+        floor = 5e-5 * top[part(n)]
+        tol = torch.full_like(w, floor) if s <= floor else 1e-5 * w.abs() + 5e-4 * s
+        diff = (got[n].double() - w).abs()
+        assert not bool((diff > tol).any()), (n, diff.max().item(), s)
+
+
+@pytest.mark.gpu
+def test_distillation_step_on_the_card_matches_the_plain_versions():
+    """One distillation step of the tiny teacher and the one-layer student of
+    head dim 96 (``tests/test_torch_distill.py``'s) on the card, fp32 with
+    TF32 off, against the same step on the CPU (the plain versions): the
+    metrics within 1e-5, the gradient of every student leaf as the update
+    consumes it (so the dq and dk/dv kernels at d = 96 are held, not only
+    the forward) within rtol 1e-5 plus 5e-4 of the leaf's largest entry
+    (fp32, summation order), the student's parameters after the update
+    within 1e-5, the teacher unchanged, and each kernel launched once a
+    layer (2 teacher and 1 student forward, 1 dq, 1 dk/dv)."""
+    _need_card()
+    from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.train import distill as D
+    from scl_deepfake_audio_detection_torch.train.optim import set_learning_rate
+    from seeded_params import seeded_tree
+
+    rng = np.random.default_rng(5)
+    batch = {"wav": (0.2 * rng.normal(size=(2, 4, 4000))).astype(np.float32),
+             "labels": np.tile([1.0, 1.0, 0.0, 0.0], (2, 1)).astype(np.float32)}
+    runs = {}
+    for device in ("cuda", "cpu"):
+        teacher = LinearNLL(ssl=XLSRConfig.tiny(), emb_dim=16, device=device)
+        student = LinearNLL(ssl=XLSRConfig.tiny(encoder_dim=192, num_heads=2,
+                                                encoder_layers=1),
+                            emb_dim=16, dropout=0.0, device=device)
+        assert student.ssl.cfg.head_dim == 96
+        eng = D.DistillEngine(teacher, student, D.DistillConfig(emb_loss_weight=0.1))
+        eng.init_state(seeded_tree(teacher, 3), seeded_tree(student, 5))
+        set_learning_rate(eng.optimizer, 1e-6)
+        grads, real_step = {}, eng.optimizer.step
+
+        def spy(grads=grads, opt=eng.optimizer, real_step=real_step):
+            grads.update({n: p.grad.detach().cpu().clone()
+                          for n, p in zip(opt.names, opt.params)})
+            return real_step()
+
+        eng.optimizer.step = spy
+        t_before = {n: p.detach().clone() for n, p in teacher.named_parameters()}
+        _kernels.reset_launches()
+        metrics = eng.run_epoch([batch])
+        torch.cuda.synchronize()
+        assert all(torch.equal(p, t_before[n]) for n, p in teacher.named_parameters())
+        runs[device] = (metrics, grads,
+                        {n: p.detach().cpu() for n, p in student.named_parameters()},
+                        dict(_kernels.LAUNCHES))
+    (m, g, p, launches), (m_ref, g_ref, p_ref, launches_ref) = runs["cuda"], runs["cpu"]
+    assert launches == {"flash_attn_fwd": 3, "flash_attn_bwd_dq": 1, "flash_attn_bwd_dkv": 1}
+    assert not any(launches_ref.values())
+    assert sorted(m) == sorted(m_ref)
+    for k in m_ref:
+        assert m[k] == pytest.approx(m_ref[k], rel=1e-5, abs=1e-5), k
+    assert sorted(g) == sorted(g_ref) == sorted(p_ref)
+    _assert_grads_close(g, g_ref)
+    for n in p_ref:
+        assert (p[n] - p_ref[n]).abs().max().item() <= 1e-5, n

@@ -54,6 +54,12 @@ def test_the_sweep_holds_the_zoo_modules():
         assert f"{port.__name__}.{m}" in mods, m
 
 
+def test_the_sweep_holds_the_distillation_and_codec_modules():
+    mods = set(_port_modules())
+    for m in ("train.distill", "dsp.codec", "ops.losses"):
+        assert f"{port.__name__}.{m}" in mods, m
+
+
 def test_importing_the_kernels_module_builds_nothing():
     code = (
         "from scl_deepfake_audio_detection_torch.ops import _kernels as K\n"

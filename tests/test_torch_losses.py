@@ -130,3 +130,100 @@ def test_unknown_loss_type_raises():
     out = ModelOutput(torch.zeros(2, 2), torch.zeros(2, 3, 4), torch.zeros(2, 4))
     with pytest.raises(ValueError, match="loss_type"):
         pm.loss(out, torch.tensor([0.0, 1.0]))
+
+
+# ------------------------------------------------ the rest of ops/losses
+# fp32 from the same inputs in both; 1e-6 relative and absolute (summation
+# order only, over at most a few dozen terms)
+TOL6 = dict(rtol=1e-6, atol=1e-6)
+
+
+def _both(fn_name, *arrays, **kw):
+    """(port, JAX) value of ``fn_name`` on the same numpy inputs."""
+    got = getattr(PL, fn_name)(*(torch.from_numpy(np.array(a)) for a in arrays), **kw)
+    want = getattr(JL, fn_name)(*(jnp.asarray(a) for a in arrays), **kw)
+    return got.detach().numpy(), np.asarray(want)
+
+
+@pytest.mark.parametrize("temp", [1.0, 4.0, 20.0])
+def test_kld_distill_matches_jax_and_ignores_a_row_shift(rng, temp):
+    """KL(teacher || student) * T^2, batchmean; the models hand it
+    log-probabilities, which give the same value as the logits
+    (``tests/test_distill.py``'s identity)."""
+    s, t = _feat(rng, (6, 2)) * 3, _feat(rng, (6, 2)) * 3
+    got, want = _both("kld_distill", s, t, temp=temp)
+    np.testing.assert_allclose(got, want, **TOL6)
+    logp = lambda z: torch.log_softmax(torch.from_numpy(z), -1)  # noqa: E731
+    shifted = PL.kld_distill(logp(s), logp(t), temp=temp).item()
+    assert shifted == pytest.approx(float(got), rel=1e-5, abs=1e-6)
+
+
+@pytest.mark.parametrize("temp", [1.0, 2.5])
+def test_neg_energy_matches_jax(rng, temp):
+    got, want = _both("neg_energy", _feat(rng, (7, 3)) * 2, temperature=temp)
+    np.testing.assert_allclose(got, want, **TOL6)
+
+
+@pytest.mark.parametrize("flag_in", [True, False])
+def test_neg_energy_reg_loss_matches_jax(rng, flag_in):
+    energy = _feat(rng, (9,)) * 5
+    got, want = _both("neg_energy_reg_loss", energy, margin_in=-1.0, margin_out=1.5,
+                      flag_in=flag_in)
+    np.testing.assert_allclose(got, want, **TOL6)
+
+
+def test_mixup_ce_matches_jax(rng):
+    logits = _feat(rng, (8, 3)) * 2
+    y1, y2 = rng.integers(0, 3, 8), rng.integers(0, 3, 8)
+    gammas = rng.uniform(size=8).astype(np.float32)
+    np.testing.assert_allclose(*_both("mixup_ce", logits, y1), **TOL6)
+    np.testing.assert_allclose(*_both("mixup_ce", logits, y1, y2, gammas), **TOL6)
+    for args in ((y1, y2, None), (y1, None, gammas)):
+        with pytest.raises(ValueError, match="together") as want:
+            JL.mixup_ce(jnp.asarray(logits), *(None if a is None else jnp.asarray(a)
+                                               for a in args))
+        with pytest.raises(ValueError, match="together") as got:
+            PL.mixup_ce(torch.from_numpy(logits), *(None if a is None else torch.from_numpy(a)
+                                                    for a in args))
+        assert str(got.value) == str(want.value)
+
+
+def test_neg_cosine_and_margin_ranking_match_jax(rng):
+    a, b = _feat(rng, (3, 4)), _feat(rng, (3, 4))
+    np.testing.assert_allclose(*_both("_neg_cosine", a, b), **TOL6)
+    np.testing.assert_allclose(*_both("_neg_cosine", a, np.zeros_like(a)), **TOL6)
+    np.testing.assert_allclose(*_both("_margin_ranking", a[0], b[0]), **TOL6)
+    np.testing.assert_allclose(*_both("_margin_ranking", a[0], b[0], margin=0.5), **TOL6)
+
+
+@pytest.mark.parametrize("bs", [2, 3, 6])
+@pytest.mark.parametrize("variant", ["default", "anchor", "diff_mat", "margin"])
+def test_rank_consistency_matches_jax(rng, bs, variant):
+    """The anchored form (default anchor, a given anchor, a given difference
+    matrix, the margin metric); fewer than 3 rows give 0."""
+    x = _feat(rng, (bs, 5))
+    kw_p, kw_j = {}, {}
+    if variant == "anchor":
+        anchor = _feat(rng, (5,))
+        kw_p["anchor"], kw_j["anchor"] = torch.from_numpy(anchor), jnp.asarray(anchor)
+    elif variant == "diff_mat":
+        dm = _feat(rng, (bs, bs, 5))
+        kw_p["diff_mat"], kw_j["diff_mat"] = torch.from_numpy(dm), jnp.asarray(dm)
+    elif variant == "margin":
+        kw_p["metric"], kw_j["metric"] = PL._margin_ranking, JL._margin_ranking
+    got = PL.rank_consistency(torch.from_numpy(x), **kw_p)
+    want = JL.rank_consistency(jnp.asarray(x), **kw_j)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL6)
+
+
+@pytest.mark.parametrize("bs", [1, 2, 3, 7])
+def test_rank_consistency_v2_and_v3_match_jax(rng, bs):
+    x = _feat(rng, (bs, 4))
+    np.testing.assert_allclose(*_both("rank_consistency_v2", x), **TOL6)
+    np.testing.assert_allclose(*_both("rank_consistency_v3", x), **TOL6)
+    v = _feat(rng, (bs,))  # scalars per row, the reference's ranking use
+    np.testing.assert_allclose(*_both("rank_consistency_v3", v), **TOL6)
+    dm = _feat(rng, (bs, bs, 4))
+    got = PL.rank_consistency_v2(None, diff_mat=torch.from_numpy(dm))
+    want = JL.rank_consistency_v2(None, diff_mat=jnp.asarray(dm))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL6)

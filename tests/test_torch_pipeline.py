@@ -251,26 +251,92 @@ def test_port_cli_eval_writes_the_jax_cli_rows(tmp_path):
 @pytest.mark.parametrize("argv", [["--train"], ["--eval", "--distill_from", "t.ckpt"],
                                   ["--eval", "--mesh", "1,1"],
                                   ["--serve", "--zero1"]])
-def test_port_cli_refuses_unported_modes(argv, capsys):
+def test_port_cli_refuses_unported_modes(argv, capsys, tmp_path):
+    """Flags of later slices exit 2.  ``--distill_from`` is ported (Slice
+    H1): beside ``--eval`` it is ignored as by the JAX CLI, which scores
+    without reading the teacher; the rows equal the JAX CLI's."""
     from scl_deepfake_audio_detection_torch.cli import main as port_main
 
+    if "--distill_from" in argv:
+        from scl_deepfake_audio_detection_tpu.cli import main as jax_main
+        from scl_deepfake_audio_detection_tpu.train import checkpoint as jckpt
+
+        _, params = _jax_params(emb_dim=128, seed=4)
+        jckpt.save(str(tmp_path / "m.ckpt"), {"params": params})
+        db = tmp_path / "db"
+        utts = _db(db, n=2, layout="eval_only")
+        run = argv + ["--config", os.path.join(REPO, "configs", "conf-eval-only.yaml"),
+                      "--database_path", str(db), "--model_path", str(tmp_path / "m.ckpt"),
+                      "--ssl_preset", "tiny", "--compute_dtype", "float32",
+                      "--batch_size", "2", "--num_workers", "1"]
+        jout, pout = str(tmp_path / "jax.txt"), str(tmp_path / "port.txt")
+        assert jax_main(run + ["--eval_output", jout]) == 0
+        assert port_main(run + ["--eval_output", pout, "--device", "cpu"]) == 0
+        want, got = _rows(jout), _rows(pout)
+        assert sorted(r[0] for r in got) == sorted(r[0] for r in want) == sorted(utts)
+        np.testing.assert_allclose(np.array([r[1:] for r in got], float),
+                                   np.array([r[1:] for r in want], float), atol=1e-5, rtol=0)
+        return
     assert port_main(argv) == 2
     assert "not ported yet" in capsys.readouterr().err
 
 
-def test_port_cli_refuses_reference_pth(tmp_path, capsys):
-    """A reference ``epoch_N.pth`` loads as ``--model_path``; as a
-    distillation teacher (``--distill_from``, Slice H) it is refused before
-    any file is read."""
-    from scl_deepfake_audio_detection_torch.cli import main as port_main
+def _train_db(root):
+    """Four anchors (two train, two dev) with one vocoded copy each, and a
+    conf-3 config cut to 4000 samples with RawBoost alone."""
+    from scl_deepfake_audio_detection_torch.utils.audio_io import save_wav
 
+    rng = np.random.default_rng(8)
+    utts = [f"a{i}.wav" for i in range(4)]
+    for u in utts:
+        save_wav(str(root / "bonafide" / u), (0.2 * rng.normal(size=5000)).astype(np.float32))
+        save_wav(str(root / "vocoded" / f"hifigan_{u}"),
+                 (0.2 * rng.normal(size=5000)).astype(np.float32))
+    (root / "scp").mkdir()
+    (root / "scp" / "train_bonafide.lst").write_text("a0.wav\na1.wav\n")
+    (root / "scp" / "dev_bonafide.lst").write_text("a2.wav\na3.wav\n")
+    cfg = root / "conf3.yaml"
+    cfg.write_text(f"""model:
+  name: wav2vec2_linear_nll
+data:
+  name: 'asvspoof_2019_augall_3'
+  kwargs:
+    vocoders: ['hifigan']
+    augmentation_methods: ["RawBoost12"]
+    num_additional_real: 1
+    trim_length: 4000
+    online_aug: true
+    aug_dir: '{root}/aug'
+""")
+    return str(cfg)
+
+
+def test_port_cli_refuses_reference_pth(tmp_path, capsys):
+    """A reference ``epoch_N.pth`` loads as ``--model_path``, and since
+    Slice H1 as a distillation teacher (``--distill_from``): the port's CLI
+    distils the tiny student from it and writes ``student_last.ckpt``
+    (``tests/test_torch_distill_cli.py`` holds the student to the JAX
+    package's)."""
+    from scl_deepfake_audio_detection_torch.cli import main as port_main
+    from scl_deepfake_audio_detection_torch.models import convert
+    from scl_deepfake_audio_detection_torch.train import checkpoint as pckpt
+
+    _, params = _jax_params(emb_dim=128, seed=5)
+    convert.save_reference_checkpoint(params, str(tmp_path / "epoch_1.pth"))
     db = tmp_path / "db"
-    _db(db, n=1, layout="eval_only")
-    rc = port_main(["--config", os.path.join(REPO, "configs", "conf-eval-only.yaml"),
-                    "--database_path", str(db), "--distill_from", "epoch_1.pth",
-                    "--ssl_preset", "tiny", "--device", "cpu"])
-    err = capsys.readouterr().err
-    assert rc == 2 and "not ported yet" in err and "Slice H" in err
+    cfg = _train_db(db)
+    rc = port_main(["--config", cfg, "--database_path", str(db),
+                    "--distill_from", str(tmp_path / "epoch_1.pth"), "--teacher_preset", "tiny",
+                    "--ssl_preset", "tiny", "--compute_dtype", "float32", "--batch_size", "2",
+                    "--num_epochs", "1", "--num_workers", "1", "--out_dir",
+                    str(tmp_path / "out"), "--device", "cpu"])
+    out, err = capsys.readouterr()
+    assert rc == 0 and "not ported yet" not in err, err
+    (path,) = glob.glob(str(tmp_path / "out" / "*" / "student_last.ckpt"))
+    _, extra = pckpt.load(path)
+    assert extra["epoch"] == 0 and 0.0 <= extra["teacher_agreement"] <= 1.0
+    assert all(np.isfinite(v) for v in extra.values())
+    assert "epoch 0: accuracy=" in out
 
 
 def test_entry_points_need_a_card_unless_the_cpu_is_asked_for():

@@ -32,6 +32,7 @@ import jax.numpy as jnp
 
 from scl_deepfake_audio_detection_tpu.models import aasist as JA
 from scl_deepfake_audio_detection_tpu.models import btse as JB
+from scl_deepfake_audio_detection_tpu.models import linear_nll as JLN
 from scl_deepfake_audio_detection_tpu.models import resnet as JRN
 from scl_deepfake_audio_detection_tpu.ops import graph as JG
 from scl_deepfake_audio_detection_tpu.ops import relpos_transformer as JRP
@@ -39,6 +40,7 @@ from scl_deepfake_audio_detection_tpu.ops.layers import leaky_relu as jax_leaky_
 from scl_deepfake_audio_detection_tpu.ops.layers import max_pool2d as jax_max_pool2d
 from scl_deepfake_audio_detection_torch.models import aasist as PA
 from scl_deepfake_audio_detection_torch.models import btse as PB
+from scl_deepfake_audio_detection_torch.models import linear_nll as PLN
 from scl_deepfake_audio_detection_torch.models import resnet as PRN
 from scl_deepfake_audio_detection_torch.ops import graph as PG
 from scl_deepfake_audio_detection_torch.ops import relpos_transformer as PRP
@@ -77,9 +79,11 @@ def _swapped(pairs):
 # ---------------------------------------------------------------- the port
 
 @contextlib.contextmanager
-def record_port():
+def record_port(linear_nll: bool = False):
     """Yield the list that fills with the port's choices, in call order:
-    ``(kind, data)`` with data in the JAX package's layout."""
+    ``(kind, data)`` with data in the JAX package's layout.  With
+    ``linear_nll`` also ``LinearNLL``'s ReLU and frame-MLP LeakyReLU signs
+    (a distillation step runs it as teacher and student)."""
     choices = []
 
     def keep(kind, *data):
@@ -123,18 +127,20 @@ def record_port():
                    (PG, "torch", _Proxy(torch, sort=sort)),
                    (PRN, "torch", _Proxy(torch, relu=relu)),
                    (PB, "leaky_relu", leaky_relu),
-                   (PRP, "torch", _Proxy(torch, relu=relu))]):
+                   (PRP, "torch", _Proxy(torch, relu=relu))]
+                  + ([(PLN, "torch", _Proxy(torch, relu=relu)), (PLN, "leaky_relu", leaky_relu)]
+                     if linear_nll else [])):
         yield choices
 
 
 # ---------------------------------------------------------------- JAX
 
 @contextlib.contextmanager
-def pin_jax(choices):
-    """Make the JAX AASIST and ResNet take ``choices`` (from
-    ``record_port``) in call order; fails if the ops come in another order
-    or shape.  Pins are constants: a jitted function traced inside keeps
-    them."""
+def pin_jax(choices, linear_nll: bool = False):
+    """Make the JAX AASIST and ResNet (and with ``linear_nll`` the JAX
+    ``LinearNLL``) take ``choices`` (from ``record_port``) in call order;
+    fails if the ops come in another order or shape.  Pins are constants:
+    a jitted function traced inside keeps them."""
     it = iter(choices)
 
     def take(kind, shape):
@@ -187,7 +193,9 @@ def pin_jax(choices):
                    (JG, "jax", _Proxy(jax, lax=_Proxy(jax.lax, top_k=top_k))),
                    (JRN, "jax", _Proxy(jax, nn=_Proxy(jax.nn, relu=relu))),
                    (JB, "leaky_relu", leaky_relu),
-                   (JRP, "jax", _Proxy(jax, nn=_Proxy(jax.nn, relu=relu)))]):
+                   (JRP, "jax", _Proxy(jax, nn=_Proxy(jax.nn, relu=relu)))]
+                  + ([(JLN, "jax", _Proxy(jax, nn=_Proxy(jax.nn, relu=relu))),
+                      (JLN, "leaky_relu", leaky_relu)] if linear_nll else [])):
         yield
     assert next(it, None) is None, "the JAX model made fewer choices than the port"
 
