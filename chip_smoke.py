@@ -131,7 +131,24 @@ Phases, each of which fails the script with a non-zero exit:
    gradient ms at [16, 64600] and [22, 64000], outputs within 1e-2 of
    'conv' relative to its largest, scores within 5e-2, ms a forward, and
    one conf-3 step with 'conv', ``fuse_qkv``, 'gemm' and 'phase', 48 / 24
-   / 24 launches each;
+   / 24 launches each.  Then the parallel path (``phase_parallel``, after
+   ``--device_aug``, on the training CLI's database at the cut depth):
+   (a) the training CLI under ``--mesh 1,1 --zero1``, a process group of
+   one over NCCL, whose ``last.ckpt`` leaves are the plain CLI run's
+   within 1e-6 (cuDNN deterministic for both runs), 36 / 16 / 16 launches
+   each; (b) two ranks started on the one card over gloo (NCCL refuses two
+   ranks a card), one [2, 11, 64000] bf16 step of XLS-R 300M's widths at 4
+   layers under (2, 1) and under (1, 2) (8 heads of 64 a rank through the
+   kernels) against the one-process step: metrics within MAIN_PATH_ATOL of
+   their size, each leaf's first moment within a cosine of 0.99 and 5 % in
+   norm of the one-process one, all leaves jointly within 2^-5,
+   8 / 4 / 4 launches per rank per step, the second step's ms and peak
+   memory per rank, and the one-process peak against
+   ``parallel/memory``'s analytic sum (``[memory]``; after ``phase_remat``
+   a second ``[memory]`` line gives the conf-3 'attn' peak over the sum,
+   the estimator's overhead); (c) ``--multihost --eval`` from two ranks at full depth,
+   whose ``.part0`` and ``.part1`` rows together equal the one-process
+   rows to 6 decimals;
 6. times: CUDA-event times of each kernel at the distillation student's
    shape [22, 8, 199, 96] and at the training shape [22, 16, 199, 64] bf16
    (the forward also at the eval shape [16, 16, 201, 64]
@@ -153,23 +170,27 @@ input, its ``ms_before`` is that kernel and torch's D as one graphed
 callable, so that both times cover the same work.
 
 The JSON object with one entry per kernel comes two lines before the last
-(launches counted on the distillation path, ``phase_distill``'s CLI run,
-with each path's counts under
+(launches counted on the parallel path, ``phase_parallel`` (a)'s ``--mesh
+1,1 --zero1`` CLI run, with each path's counts under
 ``launches_by_path``: ``eval``, ``eval_modes``, ``serve`` (the stdin
 runs), ``serve_http``, ``eval_from_export``, ``serve_from_export``,
 ``train``, ``train_cli``,
 ``train_cli_device_aug``, ``remat_<policy>_per_step`` and
 ``zoo_<aasist|resnet|btse>_<train_cli|eval|serve|eval_from_export>``,
-``zoo`` (the zoo's total), ``distill`` and ``distill_student_eval``; the
+``zoo`` (the zoo's total), ``distill``, ``distill_student_eval`` and
+``parallel_<run>`` (``phase_parallel``'s CLI runs, each rank's step under
+dp and tp, the one-process ``--eval`` of (c)); the
 zoo's utt/s, ms per step and peak memory under the forward's ``zoo``, the
 distillation step's under ``distill``;
 the forward's times at bucketed scoring's longest batch [16, 16, 349, 64]
 under ``eval_modes``; times at the training shape [22, 16, 199, 64],
 ``ms`` = ``graph_ms``, with ``eager_ms`` and ``ms_before``, as before
-distillation was ported, and at the student's shape [22, 8, 199, 96] under
-``student_shape``; the forward's eval-shape times under
+distillation was ported, at the student's shape [22, 8, 199, 96] under
+``student_shape`` and at a tensor-parallel rank's [22, 8, 199, 64] under
+``tp_shape``; the forward's eval-shape times under
 ``eval``, the artifact's under ``export``; before it the per-conv table
-as ``[conv-json]`` and the reference checkpoint's as ``[refckpt-json]``),
+as ``[conv-json]``, the reference checkpoint's as ``[refckpt-json]`` and
+``phase_parallel``'s times and memory as ``[parallel-json]``),
 then the card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
@@ -2886,6 +2907,341 @@ def phase_distill(K, card, tmp):
     return {"distill": launches, "distill_student_eval": ev_launches}, stats
 
 
+# phase_parallel: XLS-R 300M widths (16 heads) at EARLY_LAYERS layers + LinearNLL,
+# bf16 remat 'attn', conf-3's [2, 11, 64000] step; ranks on the one card
+PARALLEL = dict(seed=1234, lr=1e-4, shapes=((2, 1), (1, 2)), eval_utts=8)
+# the tensor-parallel rank's attention at [2 x 11, 64000]: 8 heads of 64
+TP_SHAPE = (22, 8, 199, 64)
+
+
+def _parallel_step(K, shape, device):
+    """One train step (then a second, timed) of the phase's model on mesh
+    ``shape`` (in a process group of that many ranks, or (1, 1) alone):
+    the first step's metrics and whole first moments (rank 0, after the
+    gathers), each step's launches, the second step's ms and the peak
+    memory of this process."""
+    from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.parallel import mesh as M
+    from scl_deepfake_audio_detection_torch.train.engine import Engine
+    from scl_deepfake_audio_detection_torch.train.optim import set_learning_rate
+    from scl_deepfake_audio_detection_torch.utils.config import TrainConfig
+
+    c = PARALLEL
+    ssl = XLSRConfig.xlsr_300m(encoder_layers=EARLY_LAYERS, compute_dtype="bfloat16",
+                               remat=True)
+    eng = Engine(LinearNLL(ssl=ssl, device=device, seed=c["seed"]),
+                 TrainConfig(compute_dtype="bfloat16", seed=c["seed"],
+                             mesh_shape=list(shape) if M.is_distributed() else None))
+    eng.init_state()
+    set_learning_rate(eng.optimizer, c["lr"])
+    batch = conf3_batches(1, c["seed"])[0]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"launches": [], "heads": eng.model.ssl.encoder.layers[0].attn.q.weight.shape[0] //
+           ssl.head_dim}
+    for i in range(2):
+        placed = eng.place_batch(batch)
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        m = eng.train_step(placed, eng.step_generator(0, i))
+        torch.cuda.synchronize()
+        out["ms"] = (time.perf_counter() - t0) * 1e3
+        out["launches"].append(dict(K.LAUNCHES))
+        if i == 0:
+            out["metrics"] = {k: float(v) for k, v in m.items()}
+            moments = {k[len("exp_avg//"):]: v.float().cpu()
+                       for k, v in eng.optimizer.state_arrays().items()
+                       if k.startswith("exp_avg//")}
+            if M.rank() == 0:
+                out["exp_avg"] = moments
+            del moments
+            torch.cuda.reset_peak_memory_stats()  # the peak of the second step
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del eng, placed
+    torch.cuda.empty_cache()
+    return out
+
+
+def _parallel_rank(out_dir):
+    """One of phase_parallel's two ranks on the card (a spawned process):
+    joins the group, takes the step on each mesh shape, writes its results."""
+    sys.path.insert(0, ROOT)
+    from scl_deepfake_audio_detection_torch.ops import _kernels as K
+    from scl_deepfake_audio_detection_torch.parallel import mesh as M
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = M.join_environment("cuda")
+    res = {shape: _parallel_step(K, shape, device) for shape in PARALLEL["shapes"]}
+    res["backend"] = torch.distributed.get_backend()
+    torch.save(res, os.path.join(out_dir, f"rank{M.rank()}.pt"))
+    return 0
+
+
+def _parallel_database(root, n):
+    from scl_deepfake_audio_detection_torch.utils.audio_io import save_wav
+
+    rng = np.random.default_rng(PARALLEL["seed"])
+    utts = [f"p{i:02d}.wav" for i in range(n)]
+    for u in utts:
+        save_wav(os.path.join(root, u), (0.1 * rng.normal(
+            size=int(rng.integers(20000, 64600, endpoint=True)))).astype(np.float32))
+    with open(os.path.join(root, "protocol.txt"), "w") as f:
+        f.writelines(f"{u} eval {'bonafide' if i % 2 else 'spoof'}\n" for i, u in enumerate(utts))
+    return utts
+
+
+def phase_parallel(K, card, tmp, host):
+    """The parallel path on the one card.  (a) The training CLI under
+    ``--mesh 1,1 --zero1`` (a process group of one over NCCL) against the
+    plain CLI on the training CLI's database at ``cut_depth``'s depth:
+    ``last.ckpt``'s leaves within 1e-6.  (b) Two ranks on the card over
+    gloo (NCCL puts one rank on a card): one [2, 11, 64000] bf16 step under
+    (2, 1) and under (1, 2) (8 heads of 64 a rank through the kernels)
+    against the one-process step: the metrics within MAIN_PATH_ATOL of
+    their size, the first moments (0.1 x the gradient) by ``_moments_close``
+    (each leaf's direction and size, all leaves' joint difference; a second
+    one-process step gives the card's own floor); launches per rank exact; the second step's ms and the peak memory
+    per rank.  (c) ``--multihost --eval`` from two ranks (batch 1, at full
+    depth): ``.part0`` and ``.part1`` together equal the one-process rows
+    to 6 decimals.  Returns the launches of each run and the stats."""
+    import contextlib
+    import io
+
+    from scl_deepfake_audio_detection_torch import cli
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.parallel import memory as Mem
+    from scl_deepfake_audio_detection_torch.parallel import mesh as M
+    from scl_deepfake_audio_detection_torch.train import checkpoint as ckpt
+    from scl_deepfake_audio_detection_torch.utils.tree import flatten
+
+    c = PARALLEL
+    t_phase = time.perf_counter()
+    layers = XLSRConfig.xlsr_300m().encoder_layers  # cut_depth's
+    launches, stats = {}, {}
+
+    # (a) --mesh 1,1 --zero1: a group of one over NCCL, against the plain CLI
+    common = ["--config", host["config"], "--database_path", host["db"], "--ssl_preset",
+              "xlsr_300m", "--compute_dtype", "bfloat16", "--batch_size", "2",
+              "--num_epochs", "1", "--device", "cuda", "--seed", str(c["seed"])]
+    states, deterministic = {}, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True  # the two runs compared to 1e-6
+    try:
+        for label, extra in (("plain", []), ("mesh_1_1_zero1", ["--mesh", "1,1", "--zero1"])):
+            out = os.path.join(tmp, f"par_{label}")
+            K.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = cli.main(common + extra + ["--out_dir", out])
+            torch.cuda.synchronize()
+            launches[f"cli_{label}"] = dict(K.LAUNCHES)
+            if rc != 0:
+                raise AssertionError(f"--mesh run {label} exited {rc}")
+            (run,) = os.listdir(out)
+            states[label] = flatten(ckpt.load(os.path.join(out, run, "last.ckpt"))[0])
+            print(f"[parallel] (a) CLI {label}: {time.perf_counter() - t0:.2f}s, launches "
+                  f"{launches[f'cli_{label}']}; a process group after the run: "
+                  f"{M.is_distributed()}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b = states["plain"], states["mesh_1_1_zero1"]
+    err = max(float(np.abs(np.asarray(a[k], np.float64) - np.asarray(b[k], np.float64)).max())
+              for k in a) if sorted(a) == sorted(b) else float("inf")
+    steps, dev_steps = CLI_DB["train"] // 2, -(-CLI_DB["dev"] // 2)
+    want = {"flash_attn_fwd": 2 * layers * steps + layers * dev_steps,
+            "flash_attn_bwd_dq": layers * steps, "flash_attn_bwd_dkv": layers * steps}
+    print(f"[parallel] (a) --mesh 1,1 --zero1 (NCCL, world 1) vs the plain CLI: "
+          f"{len(a)} leaves of last.ckpt, max |diff| {err:.3e} (tol 1e-6)")
+    if err > 1e-6 or any(launches[f"cli_{k}"] != want for k in ("plain", "mesh_1_1_zero1")):
+        raise AssertionError(f"(a): max diff {err}, launches {launches}, want {want}")
+    stats["cli_mesh_1_1_zero1_max_abs_diff"] = err
+
+    # (b) two ranks on the card, dp (2, 1) and tp (1, 2), against one process
+    ref = _parallel_step(K, (1, 1), torch.device("cuda"))
+    again = _parallel_step(K, (1, 1), torch.device("cuda"))
+    ref_launches = ref["launches"][0]
+    per_step = {"flash_attn_fwd": 2 * layers, "flash_attn_bwd_dq": layers,
+                "flash_attn_bwd_dkv": layers}
+    analytic = Mem.estimate_train_memory(
+        XLSRConfig.xlsr_300m(encoder_layers=layers, compute_dtype="bfloat16", remat=True),
+        CONF3["groups"] * CONF3["views"], CONF3["samples"], overhead=1.0).analytic_gb
+    print(f"[parallel] (b) one process: step 2 {ref['ms']:.2f} ms, peak "
+          f"{ref['peak_gib']:.3f} GiB (analytic sum {analytic:.3f} GiB), launches "
+          f"{ref_launches}, loss {ref['metrics']['loss']:.6g}")
+    torch.cuda.empty_cache()
+    rank_dir = os.path.join(tmp, "ranks")
+    os.makedirs(rank_dir)
+    backend = os.environ.get("SCL_DIST_BACKEND")
+    os.environ["SCL_DIST_BACKEND"] = "gloo"  # two ranks on one card
+    t0 = time.perf_counter()
+    try:
+        codes = M.launch(_parallel_rank, 2, args=(rank_dir,), timeout=300)
+    finally:
+        if backend is None:
+            os.environ.pop("SCL_DIST_BACKEND")
+        else:
+            os.environ["SCL_DIST_BACKEND"] = backend
+    if codes != [0, 0]:
+        raise AssertionError(f"(b) rank exit codes {codes}")
+    ranks = [torch.load(os.path.join(rank_dir, f"rank{r}.pt"), weights_only=False)
+             for r in range(2)]
+    print(f"[parallel] (b) two ranks over {ranks[0]['backend']} on one card: "
+          f"{time.perf_counter() - t0:.1f}s with start-up")
+    bad = []
+    floor = _moments_diff(again["exp_avg"], ref["exp_avg"])
+    print(f"[parallel] (b) a second one-process step against the first (the card's "
+          f"run-to-run floor in bf16): {_moments_line(floor)}")
+    for shape in c["shapes"]:
+        name = f"{'dp' if shape[0] > 1 else 'tp'}_{shape[0]}_{shape[1]}"
+        got = ranks[0][shape]
+        merr = max(abs(got["metrics"][k] - ref["metrics"][k]) /
+                   max(abs(ref["metrics"][k]), 1.0) for k in ref["metrics"])
+        diff = _moments_diff(got["exp_avg"], ref["exp_avg"])
+        stats[f"{name}_moments"] = diff
+        for r, res in enumerate(ranks):
+            launches[f"{name}_rank{r}"] = res[shape]["launches"][0]
+            ok = all(l == per_step for l in res[shape]["launches"])
+            print(f"[parallel] (b) {card}: {name} rank {r}: {res[shape]['heads']} heads a "
+                  f"layer, step 2 {res[shape]['ms']:.2f} ms, peak {res[shape]['peak_gib']:.3f} "
+                  f"GiB, launches per step {res[shape]['launches']} (expected {per_step}: "
+                  f"{ok})")
+            bad += [] if ok else [f"{name} rank {r} launches"]
+            stats[f"{name}_rank{r}"] = {"ms": res[shape]["ms"],
+                                        "peak_gib": res[shape]["peak_gib"]}
+        print(f"[parallel] (b) {name}: metrics within {merr:.3e} of the one-process step "
+              f"(tol {MAIN_PATH_ATOL:.0e}); first moments: {_moments_line(diff)}")
+        if merr > MAIN_PATH_ATOL or not _moments_close(diff):
+            bad.append(f"{name}: metrics {merr}, moments {diff}")
+        if ranks[0][shape]["heads"] != 16 // shape[1]:
+            bad.append(f"{name}: {ranks[0][shape]['heads']} heads a rank")
+    if ref_launches != per_step or bad:
+        raise AssertionError(f"(b): {bad}, one-process launches {ref_launches}")
+    stats["one_process"] = {"ms": ref["ms"], "peak_gib": ref["peak_gib"],
+                            "analytic_gib": analytic}
+    print(f"[memory] {card}: conf-3 step at {layers} layers, [2, 11, 64000] bf16 remat "
+          f"'attn': peak {ref['peak_gib']:.3f} GiB / analytic sum {analytic:.3f} GiB = "
+          f"{ref['peak_gib'] / analytic:.4f}")
+    del ref, again
+    torch.cuda.empty_cache()
+    return launches, stats
+
+
+# phase_parallel (b)'s first moments (0.1 x the gradient) against one
+# process's.  In bf16 the card's own rerun of one step differs by ~2e-2 of a
+# leaf's largest entry (cuDNN's bf16 conv backward), and tensor parallelism
+# rounds more partial sums (each rank's half of a product in bf16), which
+# moves the leaves whose gradient is mostly cancellation (the key weights and
+# the attention layer norm's, ~1e-1 of their largest) more.  So each leaf is
+# held by direction and size, not entry by entry, and all leaves by their
+# joint norm; the key bias (a true gradient of 0) is left out.
+MOMENT_COS, MOMENT_NORM, MOMENT_JOINT = 0.99, 0.05, 2.0 ** -5
+
+
+def _moments_diff(got, want):
+    """Per leaf the cosine and the norm ratio, and the joint relative
+    difference of all leaves (the key bias left out)."""
+    cos, ratio, num, den = {}, {}, 0.0, 0.0
+    for n, w in want.items():
+        if n.endswith("attn.k.bias"):
+            continue
+        g, w = got[n].double().reshape(-1), w.double().reshape(-1)
+        nw, ng = float(w.norm()), float(g.norm())
+        both_zero = nw == 0.0 and ng == 0.0
+        cos[n] = 1.0 if both_zero else float(g @ w) / max(nw * ng, 1e-300)
+        ratio[n] = 1.0 if both_zero else ng / max(nw, 1e-300)
+        num += float((g - w).norm()) ** 2
+        den += nw ** 2
+    worst_cos = min(cos, key=cos.get)
+    worst_ratio = max(ratio, key=lambda n: abs(ratio[n] - 1.0))
+    return {"min_cos": cos[worst_cos], "min_cos_leaf": worst_cos,
+            "worst_norm_ratio": ratio[worst_ratio], "worst_norm_ratio_leaf": worst_ratio,
+            "joint_rel_diff": (num / max(den, 1e-300)) ** 0.5}
+
+
+def _moments_line(d):
+    return (f"least cosine {d['min_cos']:.6f} ({d['min_cos_leaf']}; tol {MOMENT_COS}), "
+            f"norm ratio furthest from 1 {d['worst_norm_ratio']:.4f} "
+            f"({d['worst_norm_ratio_leaf']}; tol 1 +- {MOMENT_NORM}), joint relative "
+            f"difference {d['joint_rel_diff']:.3e} (tol {MOMENT_JOINT:.3e})")
+
+
+def _moments_close(d) -> bool:
+    return (d["min_cos"] >= MOMENT_COS and abs(d["worst_norm_ratio"] - 1.0) <= MOMENT_NORM
+            and d["joint_rel_diff"] <= MOMENT_JOINT)
+
+
+def memory_overhead(card, peak_gib):
+    """``parallel/memory``'s overhead on this card: the peak of
+    ``phase_remat``'s conf-3 'attn' step (XLS-R 300M + LinearNLL, [2, 11,
+    64000] bf16, the second step) over the estimator's analytic sum."""
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.parallel import memory as Mem
+
+    c = CONF3
+    est = Mem.estimate_train_memory(
+        XLSRConfig.xlsr_300m(compute_dtype="bfloat16", remat=True), c["groups"] * c["views"],
+        c["samples"], overhead=1.0)
+    ratio = peak_gib / est.analytic_gb
+    print(f"[memory] {card}: conf-3 'attn' step (phase_remat): peak {peak_gib:.3f} GiB / "
+          f"analytic sum {est.analytic_gb:.3f} GiB = overhead {ratio:.4f} "
+          f"(parallel/memory.py H100_OVERHEAD {Mem.H100_OVERHEAD})")
+    return {"peak_gib": peak_gib, "analytic_gib": est.analytic_gb, "overhead": ratio}
+
+
+def phase_parallel_eval(K, card, tmp):
+    """(c) of phase_parallel, at full depth: ``--multihost --eval`` from two
+    ranks (each on the card, no process group), ``.part0`` and ``.part1``
+    against the one-process ``--eval`` rows (batch 1 in both, so that each
+    row's forward is the same) to 6 decimals, the parts' decode caches
+    apart."""
+    import contextlib
+    import io
+
+    from scl_deepfake_audio_detection_torch import cli
+    from scl_deepfake_audio_detection_torch.cli.context import _rank_cli
+    from scl_deepfake_audio_detection_torch.parallel import mesh as M
+
+    c = PARALLEL
+    db = os.path.join(tmp, "db")
+    utts = _parallel_database(db, c["eval_utts"])
+    common = ["--eval", "--config", EVAL_CONFIG, "--database_path", db, "--ssl_preset",
+              "xlsr_300m", "--compute_dtype", "bfloat16", "--batch_size", "1",
+              "--num_workers", "2", "--seed", str(c["seed"]), "--device", "cuda"]
+    whole = os.path.join(tmp, "whole.txt")
+    K.reset_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli.main(common + ["--eval_output", whole])
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"one-process --eval exited {rc}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    parts = os.path.join(tmp, "scores.txt")
+    codes = M.launch(_rank_cli, 2, args=(common + ["--multihost", "--eval_output", parts,
+                                                   "--decode_cache",
+                                                   os.path.join(tmp, "cache")],),
+                     timeout=300)
+    if codes != [0, 0]:
+        raise AssertionError(f"(c) rank exit codes {codes}")
+    rows = [_read_rows(f"{parts}.part{r}") for r in range(2)]
+    want = sorted(_read_rows(whole))
+    got = sorted(rows[0] + rows[1])
+    same_utts = [r[0] for r in got] == [r[0] for r in want] and len(want) == len(utts)
+    err = max(abs(float(x) - float(y)) for g, w in zip(got, want) for x, y in zip(g[1:], w[1:]))
+    caches = sorted(os.listdir(os.path.join(tmp, "cache")))
+    print(f"[parallel] (c) {card}: --multihost --eval from two ranks: parts of "
+          f"{[len(r) for r in rows]} rows ({time.perf_counter() - t0:.1f}s with start-up), "
+          f"union vs one process: max |diff| {err:.1e} (tol 5e-7, 6 decimals), decode "
+          f"caches {caches}; one-process launches {launches}")
+    if not same_utts or err > 5e-7 or [len(r) for r in rows] != [4, 4] or \
+            caches != ["part0", "part1"]:
+        raise AssertionError(f"(c): rows {rows} vs {want}")
+    return launches
+
+
 def _bound(nbytes, flops):
     bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
     return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations", \
@@ -3052,9 +3408,15 @@ def main() -> int:
         lap("train_cli")
         torch.cuda.empty_cache()
         aug_launches = phase_device_aug(K, card, host)
-    lap("device_aug")
+        lap("device_aug")
+        torch.cuda.empty_cache()
+        par_launches, par_stats = phase_parallel(K, card, tmp, host)
+    with tempfile.TemporaryDirectory() as tmp:
+        par_launches["multihost_eval_one_process"] = phase_parallel_eval(K, card, tmp)
+    lap("parallel")
     torch.cuda.empty_cache()
     remat = phase_remat(K, card)
+    par_stats["memory_overhead"] = memory_overhead(card, remat["attn"]["peak_gib"])
     lap("remat")
     torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as tmp:
@@ -3067,6 +3429,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     train_times = phase_backward_times(K, A, card, KB, TRAIN_SHAPE)
     student_times = phase_backward_times(K, A, card, KB, STUDENT_SHAPE)
+    tp_times = phase_backward_times(K, A, card, KB, TP_SHAPE)
     lap("backward_times")
     print(f"[done] all phases in {time.perf_counter() - t_start:.1f}s; launches on the "
           f"eval main path {eval_launches}, in the eval modes {modes_launches}, serving "
@@ -3074,15 +3437,15 @@ def main() -> int:
           f"training main path {launches}, through the training CLI {cli_launches}, with "
           f"--device_aug {aug_launches}; remat per step "
           f"{ {k: v['launches'] for k, v in remat.items()} }; the model zoo {zoo}; "
-          f"distillation {distill_launches}")
-    # Each entry's launches belong to this slice's main path, distillation
-    # through the CLI (--distill_from: the XLS-R 300M teacher's forwards at
-    # [22, 16, 199, 64], the student_base student's forwards and backward at
-    # [22, 8, 199, 96]); its times to XLS-R 300M's training shape, as in the
-    # entries of the slices before, so that they compare across commits, with
-    # the times at the student's shape, where all three kernels run on this
-    # path, under "student_shape".  The other paths' launches sit beside
-    # them, and the forward's eval-shape times under "eval".
+          f"distillation {distill_launches}; the parallel path {par_launches}")
+    # Each entry's launches belong to this slice's main path, the training CLI
+    # under --mesh 1,1 --zero1 (phase_parallel (a)); its times to XLS-R 300M's
+    # training shape, as in the entries of the slices before, so that they
+    # compare across commits, with the times at the distillation student's
+    # shape under "student_shape" and at a tensor-parallel rank's (8 heads of
+    # 64, phase_parallel (b)) under "tp_shape".  The other paths' launches
+    # (each rank of (b) per step among them) sit beside them, and the
+    # forward's eval-shape times under "eval".
     kernels = []
     for name in K.KERNELS:
         entry = {
@@ -3090,8 +3453,8 @@ def main() -> int:
             "route": "cuda",
             "source": f"scl_deepfake_audio_detection_torch/csrc/{K.SOURCES[name]}",
             "replaces": REPLACES[name],
-            "path": "distill",
-            "launches": distill_launches["distill"][name],
+            "path": "parallel",
+            "launches": par_launches["cli_mesh_1_1_zero1"][name],
             "launches_by_path": {"eval": eval_launches[name],
                                  "eval_modes": modes_launches[name],
                                  "serve": serve_launches["serve"][name],
@@ -3104,9 +3467,11 @@ def main() -> int:
                                     for k, v in remat.items()},
                                  **{f"zoo_{k}": v[name] for k, v in zoo_launches.items()},
                                  "zoo": zoo[name],
-                                 **{k: v[name] for k, v in distill_launches.items()}},
+                                 **{k: v[name] for k, v in distill_launches.items()},
+                                 **{f"parallel_{k}": v[name] for k, v in par_launches.items()}},
             **train_times[name],
             "student_shape": student_times[name],
+            "tp_shape": tp_times[name],
         }
         if name == "flash_attn_fwd":
             entry["zoo"] = zoo_stats
@@ -3123,6 +3488,7 @@ def main() -> int:
                                **export_stats}
         kernels.append(entry)
     print("[conv-json] " + json.dumps({"card": card, **conv}))
+    print("[parallel-json] " + json.dumps({"card": card, **par_stats}))
     print("[refckpt-json] " + json.dumps(refckpt))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -15,9 +15,9 @@ trains (no mode flag; ``--device_aug`` composes the views on the device;
 ``--distill_from`` trains the configured model as a student of a frozen
 teacher),
 in the fixed order of the JAX CLI's dispatch.  The modes that build no
-model come first: they never touch the card.  Every mode and option of a
-later slice exits 2 with "not ported yet", before a model is built or the
-card is touched.
+model come first: they never touch the card.  Training under ``--mesh`` or
+``--multihost`` runs one rank a card (``cli.context.start_ranks``); the
+ranks are started here, or joined from torchrun's environment.
 
   ``cli.analyze``   checkpoint averaging and score analysis (no model, no device)
   ``cli.context``   the shared runtime: config, device, model or artifact, engine
@@ -32,29 +32,26 @@ from __future__ import annotations
 import sys
 
 from scl_deepfake_audio_detection_torch.cli.common import CliError
-from scl_deepfake_audio_detection_torch.cli.flags import build_parser, unported
+from scl_deepfake_audio_detection_torch.cli.flags import build_parser
 
 __all__ = ["build_parser", "main"]
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args, unknown = build_parser().parse_known_args(argv)
     try:
-        return _dispatch(args, unknown)
+        return _dispatch(args, unknown, argv)
     except CliError as e:
         if e.message:
             print(e.message, file=sys.stderr)
         return e.code
 
 
-def _dispatch(args, unknown) -> int:
+def _dispatch(args, unknown, argv) -> int:
     if unknown:
         raise CliError(2, f"unrecognized arguments: {' '.join(unknown)} (no flag "
                           "of the JAX CLI has that name, or it is not ported yet)")
-    later = unported(args)
-    if later:
-        raise CliError(2, "not ported yet: " + ", ".join(
-            f"{flag} ({where})" for flag, where in later))
 
     from scl_deepfake_audio_detection_torch.cli import analyze
 
@@ -67,15 +64,33 @@ def _dispatch(args, unknown) -> int:
         raise CliError(2, "--predict/--emb select an output format for "
                           "--eval scoring: pass --eval as well")
 
-    serving = args.serve or args.serve_http is not None
     if args.serve and args.serve_http is not None:
         raise CliError(2, "--serve and --serve_http are two front-ends to one "
                           "scorer; pick one")
 
     from scl_deepfake_audio_detection_torch.cli import context
+
+    if args.show_params or args.warm_cache:
+        return _run(args, context.build_runtime(args))
+    from scl_deepfake_audio_detection_torch.parallel import mesh
+
+    grouped = mesh.is_distributed()
+    rc = context.start_ranks(args, argv)
+    if rc is not None:  # the ranks ran in processes of their own
+        return rc
+    try:
+        return _run(args, context.build_runtime(args))
+    finally:  # leave a group this run formed or joined
+        if not grouped and mesh.is_distributed():
+            mesh.leave()
+
+
+def _run(args, ctx) -> int:
+    """The model-bearing modes, in the JAX CLI's order."""
+    from scl_deepfake_audio_detection_torch.cli import context
     from scl_deepfake_audio_detection_torch.cli import train as train_mode
 
-    ctx = context.build_runtime(args)
+    serving = args.serve or args.serve_http is not None
     if args.show_params:
         return train_mode.run_show_params(args, ctx)
     if args.warm_cache:

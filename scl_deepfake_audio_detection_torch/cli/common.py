@@ -63,3 +63,30 @@ def _load_ssl_checkpoint(args, model) -> None:
         ssl_params, _ = convert.load_fairseq_checkpoint(args.ssl_checkpoint)
     load_jax_params(model.ssl, ssl_params)
     print(f"loaded pretrained SSL from {args.ssl_checkpoint}")
+
+
+def replica_scorer(args, model, device):
+    """Under ``--mesh D,M`` the score function of the scoring modes over
+    D*M replicas of ``model``, one a local card (on ``--device cpu`` D*M
+    slices on the CPU), each batch split over them; None for one replica
+    (the caller's ``score_step``)."""
+    import torch
+
+    from scl_deepfake_audio_detection_torch.parallel.mesh import parse_mesh
+    from scl_deepfake_audio_detection_torch.train.engine import ReplicaScorer
+
+    try:
+        shape = parse_mesh(args.mesh)
+    except ValueError as e:
+        raise CliError(2, f"--mesh: {e}")
+    n = 1 if shape is None else shape[0] * shape[1]
+    if n == 1:
+        return None
+    if device.type != "cuda":
+        return ReplicaScorer(model, [device] * n)
+    cards = torch.cuda.device_count()
+    if n > cards:
+        raise CliError(2, f"--mesh {args.mesh}: {n} replicas need {n} cards (one a card); "
+                          f"this host has {cards}")
+    first = device.index or 0
+    return ReplicaScorer(model, [torch.device("cuda", (first + i) % cards) for i in range(n)])

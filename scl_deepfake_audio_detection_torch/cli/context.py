@@ -15,11 +15,23 @@ mode makes optimizer state:
    own) and the resume of a full train state that ``--model_path`` names
    (a ``last.ckpt`` of either package; under ``--distill_from`` it seeds
    only the student's parameters).
+
+Before them, ``start_ranks`` forms the process group of a training run
+under ``--mesh`` or ``--multihost`` (JAX ``cli/context.py:50-92``): a
+process of torchrun's environment joins its group (an environment that is
+incomplete or malformed exits 2); ``--mesh D,M`` with no environment
+starts D*M ranks here, one a card (fewer cards than ranks over NCCL exits
+2), or forms a group of one in this process; ``--multihost`` with no
+environment prints the JAX CLI's notice and runs as one process.  The
+scoring modes form no group: ``--multihost`` gives them this process's
+index and count (``pidx`` of ``pcnt``, its slice of the eval list), and
+``--mesh`` one model replica on each of its data*model local cards.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import sys
 from typing import Any, Optional
 
@@ -36,7 +48,7 @@ class RunContext:
     """Everything the per-mode modules share; the phases fill it in."""
 
     args: Any
-    pidx: int = 0  # this process's index of pcnt in a multi-process eval
+    pidx: int = 0  # this process's data index of pcnt (its loader shard, its eval slice)
     pcnt: int = 1
     cfg: Any = None
     device: Any = None
@@ -53,6 +65,71 @@ class RunContext:
     resume_best: Optional[float] = None
 
 
+def is_training(args) -> bool:
+    """No mode flag: the training run (or distillation)."""
+    return not (args.eval or args.serve or args.serve_http is not None or args.parity_check
+                or args.export_model or args.verify_export or args.export_reference_ckpt)
+
+
+def _device_type(args) -> str:
+    from scl_deepfake_audio_detection_torch.utils.device import resolve_device
+
+    try:
+        return resolve_device(args.device).type
+    except RuntimeError as e:
+        raise CliError(1, str(e))
+
+
+def _cluster(args):
+    from scl_deepfake_audio_detection_torch.parallel import mesh as M
+
+    try:
+        return M.cluster_env()
+    except ValueError as e:  # a cluster that was asked for must not run as one process
+        raise CliError(2, f"{'--multihost' if args.multihost else '--mesh'}: {e}")
+
+
+def start_ranks(args, argv) -> Optional[int]:
+    """Form or join the process group of a multi-rank training run; returns
+    the ranks' exit code when they ran in processes started here, else None
+    (this process goes on, as a rank or alone)."""
+    from scl_deepfake_audio_detection_torch.parallel import mesh as M
+
+    try:
+        shape = M.parse_mesh(args.mesh)
+    except ValueError as e:
+        raise CliError(2, f"--mesh: {e}")
+    if not is_training(args) or (shape is None and not args.multihost):
+        return None
+    env = _cluster(args)
+    device_type = _device_type(args)
+    world = None if shape is None else shape[0] * shape[1]
+    try:
+        if env is not None:
+            M.join_environment(device_type, world)
+            return None
+        if shape is None:  # --multihost alone: build_runtime says so
+            return None
+        M.check_cards(world, device_type)
+    except ValueError as e:
+        raise CliError(2, f"--mesh {args.mesh}: {e}")
+    if world == 1:
+        M.init_process_group(device_type)
+        return None
+    rc = next((c for c in M.launch(_rank_cli, world, args=(argv,)) if c), 0)
+    return rc if rc >= 0 else 1  # a rank ended by a signal
+
+
+def _rank_cli(argv) -> int:
+    """One started rank: the CLI on the same flags; ranks above 0 print
+    nothing to stdout (rank 0 prints the run's lines)."""
+    if int(os.environ.get("RANK", "0")) > 0:
+        sys.stdout = open(os.devnull, "w")
+    from scl_deepfake_audio_detection_torch.cli import main
+
+    return main(argv)
+
+
 def build_runtime(args) -> RunContext:
     from scl_deepfake_audio_detection_torch.utils.config import load_config
 
@@ -61,7 +138,14 @@ def build_runtime(args) -> RunContext:
                           f"got {args.compute_dtype!r}")
     cfg = load_config(args.config)
     cfg.rawboost = _rawboost_from_args(args)
-    return RunContext(args=args, cfg=cfg)
+    ctx = RunContext(args=args, cfg=cfg)
+    env = _cluster(args) if args.multihost else None
+    if args.multihost and env is None:
+        print("--multihost: no cluster detected (no RANK/WORLD_SIZE in the "
+              "environment); continuing as a single process", file=sys.stderr)
+    elif env is not None and not is_training(args):  # a scoring process: its slice
+        ctx.pidx, ctx.pcnt = env["rank"], env["world"]
+    return ctx
 
 
 def load_model_state(ctx: RunContext) -> None:
@@ -71,11 +155,20 @@ def load_model_state(ctx: RunContext) -> None:
     from scl_deepfake_audio_detection_torch.utils.config import TrainConfig
     from scl_deepfake_audio_detection_torch.utils.device import resolve_device
 
+    import torch
+
+    from scl_deepfake_audio_detection_torch.parallel import mesh as M
+
     args = ctx.args
     try:
         ctx.device = resolve_device(args.device)
     except RuntimeError as e:
         raise CliError(1, str(e))
+    training = is_training(args)
+    if ctx.device.type == "cuda" and (M.is_distributed() or ctx.pcnt > 1):
+        local = int(os.environ.get("LOCAL_RANK", "0"))
+        ctx.device = M.rank_device("cuda", local)
+        torch.cuda.set_device(ctx.device)
     ctx.train_cfg = TrainConfig(
         batch_size=args.batch_size,
         num_epochs=args.num_epochs,
@@ -96,6 +189,8 @@ def load_model_state(ctx: RunContext) -> None:
         loss_scope=args.loss_scope,
         ckpt_every=args.ckpt_every,
         async_ckpt=not args.sync_ckpt,
+        mesh_shape=list(M.parse_mesh(args.mesh)) if args.mesh and training else None,
+        zero1=args.zero1,
     )
     if args.from_export:
         _check_from_export(args)
@@ -109,7 +204,13 @@ def load_model_state(ctx: RunContext) -> None:
               file=sys.stderr)  # stderr: --serve replies own stdout
         return
     ctx.model = _build_model(args, ctx.cfg, ctx.device)
-    ctx.engine = Engine(ctx.model, ctx.train_cfg)
+    try:
+        ctx.engine = Engine(ctx.model, ctx.train_cfg,
+                            local_batches=bool(args.multihost and training))
+    except ValueError as e:  # a mesh that does not fit the ranks
+        raise CliError(2, f"--mesh {args.mesh}: {e}")
+    if training:
+        ctx.pidx, ctx.pcnt = ctx.engine.par.data_rank, ctx.engine.par.dp
     if not args.model_path:
         if args.ssl_checkpoint:
             _load_ssl_checkpoint(args, ctx.model)
@@ -179,8 +280,7 @@ def init_state(ctx: RunContext) -> None:
 
     args = ctx.args
     # forward-only modes make no optimizer state
-    training = not (args.eval or args.serve or args.serve_http is not None
-                    or args.parity_check or args.export_model or args.verify_export)
+    training = is_training(args)
     # distillation makes its own optimizer (train/distill.DistillEngine), and
     # a full train state as --model_path only seeds the student's parameters
     # (load_model_state put them in the model)

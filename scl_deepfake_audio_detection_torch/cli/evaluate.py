@@ -5,10 +5,12 @@ averaged) and ``--resume_eval`` (score only what an earlier run left).
 
 EvalDataset -> EvalLoader -> score_step -> the writers of
 ``train/scoring``, the flow of ``scl_deepfake_audio_detection_tpu/cli/evaluate.py``
-with its decode cache (``--decode_cache``), its per-process file-list
-slices (``RunContext.pidx`` of ``pcnt``; one process until multi-host runs
-are ported) and ``--from_export``, where the artifact's scorer replaces the
-model (fp32 input: ``--wire_dtype`` is ignored).
+with its decode cache (``--decode_cache``, a ``part<k>`` directory per
+process), its per-process file-list slices (``--multihost``: process k of
+n scores ``file_eval[k::n]`` into ``<out>.part<k>``), one model replica a
+card under ``--mesh`` (``cli.common.replica_scorer``) and ``--from_export``,
+where the artifact's scorer replaces the model (fp32 input: ``--wire_dtype``
+is ignored).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import time
 
 import torch
 
+from scl_deepfake_audio_detection_torch.cli.common import replica_scorer
 from scl_deepfake_audio_detection_torch.cli.context import RunContext
 from scl_deepfake_audio_detection_torch.data import protocols
 from scl_deepfake_audio_detection_torch.data.datasets import EvalDataset
@@ -36,9 +39,10 @@ def run(args, ctx: RunContext) -> int:
         # scoring needs no fp32 master weights: the matmul weights go to the
         # compute dtype once
         model = cast_matmul_params(ctx.model.eval(), torch_dtype(args.compute_dtype))
+        replicas = replica_scorer(args, model, ctx.device)
 
         def score_fn(wav):
-            return score_step(model, wav)
+            return score_step(model, wav) if replicas is None else replicas(wav)
     else:
         score_fn = scorer.score_tensor
     if ctx.desc["variant"] is None:

@@ -3,9 +3,7 @@
 Counterpart of ``scl_deepfake_audio_detection_tpu/cli/flags.py``: every flag
 of the JAX CLI with its name and default, so a shell workflow ports by
 swapping the program name, plus ``--device`` (default ``cuda``; ``cpu`` runs
-on the CPU).  A flag that selects a mode or option of a later slice of the
-port exits 2 with "not ported yet" (``unported``); ``--jax_cache`` is
-accepted and has no effect.
+on the CPU).  ``--jax_cache`` is accepted and has no effect.
 """
 
 from __future__ import annotations
@@ -14,13 +12,6 @@ import argparse
 import dataclasses
 
 from scl_deepfake_audio_detection_torch.utils.config import RawBoostConfig
-
-# dest -> (the value that leaves the flag off, the slice that ports it)
-LATER_SLICES = {
-    "multihost": (False, "Slice H"),
-    "mesh": (None, "Slice H"),
-    "zero1": (False, "Slice H"),
-}
 
 _PORT_HELP = {
     "jax_cache": "accepted for the JAX CLI's flag surface; no effect in the port",
@@ -34,18 +25,23 @@ _PORT_HELP = {
                     "CLI sets none) and writes <out>/<tag>/student_last.ckpt; eval, serve "
                     "or export it with --model_path and the student's --ssl_preset.  "
                     "Students without batch-norm state only",
+    "mesh": "mesh shape 'data,model', e.g. 8,1 or 4,2: training runs one rank a card "
+            "(started here, or joined from torchrun's RANK/WORLD_SIZE/MASTER_ADDR/"
+            "MASTER_PORT), the anchor groups split over 'data', the XLS-R heads and FFN "
+            "over 'model'; --eval and --serve split each batch over data*model local "
+            "cards, one model replica a card, in this process",
+    "zero1": "shard the AdamW moments over the data ranks (ZeRO-1)",
+    "multihost": "multi-process mode from torchrun's environment (RANK, WORLD_SIZE, "
+                 "LOCAL_RANK, MASTER_ADDR, MASTER_PORT): training shards the loader "
+                 "streams per data rank, eval splits the file list and writes "
+                 "<out>.part<k> per process; with no such environment it runs as one "
+                 "process",
     "export_model": "export the scoring function as a standalone artifact (a "
                     "torch.export program with a symbolic batch that runs on the "
                     "CPU and on the card, the weights as arguments) and exit; "
                     "deploy it with --from_export: no model code is needed on the "
                     "serving host",
 }
-
-
-def unported(args) -> list:
-    """(flag, slice) of every later-slice flag that ``args`` sets."""
-    return [(f"--{dest}", where) for dest, (off, where) in LATER_SLICES.items()
-            if getattr(args, dest) != off]
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -362,9 +358,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", type=str, default="cuda",
                    help="'cuda' (default) or 'cpu'")
     for action in p._actions:
-        if action.dest in LATER_SLICES:
-            action.help = f"not ported yet ({LATER_SLICES[action.dest][1]})"
-        elif action.dest in _PORT_HELP:
+        if action.dest in _PORT_HELP:
             action.help = _PORT_HELP[action.dest]
     return p
 

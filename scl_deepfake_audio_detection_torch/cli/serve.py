@@ -5,6 +5,8 @@ device; ``serving.py`` holds the HTTP micro-batcher.
 Counterpart of ``scl_deepfake_audio_detection_tpu/cli/serve.py``.  With
 ``--from_export`` the artifact's scorer replaces the model, at its own cut
 and, unless ``--calibrate`` says otherwise, with its own calibration.
+Under ``--mesh`` each batch splits over one model replica a card
+(``cli.common.replica_scorer``).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import threading
 
 import numpy as np
 
-from scl_deepfake_audio_detection_torch.cli.common import parse_calibration
+from scl_deepfake_audio_detection_torch.cli.common import parse_calibration, replica_scorer
 from scl_deepfake_audio_detection_torch.cli.context import RunContext
 from scl_deepfake_audio_detection_torch.dsp.pad import pad_eval
 from scl_deepfake_audio_detection_torch.models.base import cast_matmul_params
@@ -39,9 +41,10 @@ def run(args, ctx: RunContext) -> int:
         # scoring needs no fp32 master weights: the matmul weights go to the
         # compute dtype once
         model = cast_matmul_params(ctx.model.eval(), torch_dtype(args.compute_dtype))
+        replicas = replica_scorer(args, model, ctx.device)
 
         def batch_score(block):
-            return score_step(model, block)
+            return score_step(model, block) if replicas is None else replicas(block)
     else:
         batch_score = scorer.score_tensor
     sb = max(int(args.serve_batch), 1)

@@ -11,6 +11,14 @@ model's device.  ``Engine.fit`` trains there, or under ``--distill_from``
 ``train/distill.DistillEngine`` on the same batches.  It prints the JAX
 CLI's lines: trial counts, the model tag, one line per epoch and the total
 time.
+
+Over ranks (``cli.context.start_ranks``): under ``--multihost`` each data
+rank's loaders take its shard of the lists (``shard_index`` = data rank of
+``num_shards`` = data ranks, the dev loader dropping a ragged last batch),
+as the JAX CLI's processes do; under ``--mesh`` alone every rank reads the
+global batch sequence of a one-process run and ``Engine`` takes its slice.
+Every rank joins a checkpoint's gathers; rank 0 makes the run directory
+and writes.
 """
 
 from __future__ import annotations
@@ -98,13 +106,17 @@ def run(args, ctx: RunContext) -> int:
         loader_cls, kw = TrainLoader, {}
     else:
         loader_cls, kw = DeviceAugTrainLoader, {"wire_dtype": args.wire_dtype}
+    # --multihost: this data rank's stream of the lists; else the whole
+    shard = dict(shard_index=ctx.pidx, num_shards=ctx.pcnt) if args.multihost else {}
     train_loader = loader_cls(train_builder, groups, shuffle=True,
-                              num_workers=args.num_workers, seed=args.seed, **kw)
-    dev_loader = loader_cls(dev_builder, groups, shuffle=False, drop_last=False,
-                            num_workers=args.num_workers, seed=args.seed, **kw)
+                              num_workers=args.num_workers, seed=args.seed, **shard, **kw)
+    dev_loader = loader_cls(dev_builder, groups, shuffle=False,
+                            drop_last=bool(shard) and ctx.pcnt > 1,
+                            num_workers=args.num_workers, seed=args.seed, **shard, **kw)
 
     save_dir = os.path.join(args.out_dir, train_cfg.model_tag())
-    os.makedirs(save_dir, exist_ok=True)
+    if engine.par.is_writer:
+        os.makedirs(save_dir, exist_ok=True)
     print(f"model tag: {train_cfg.model_tag()}")
 
     epoch_counter = {"n": train_cfg.start_epoch}
@@ -181,7 +193,8 @@ def _run_distill(args, ctx: RunContext, train_batches, save_dir) -> int:
                            emb_loss_weight=args.distill_emb_w,
                            weight_decay=args.weight_decay)
     try:
-        deng = D.DistillEngine(teacher, ctx.model, dcfg, seed=args.seed)
+        deng = D.DistillEngine(teacher, ctx.model, dcfg, seed=args.seed,
+                               mesh=ctx.engine.mesh, local_batches=ctx.engine.par.local_batches)
     except ValueError as e:  # a BN student needs the full Engine
         raise CliError(2, str(e))
     deng.init_state(t_params, teacher_buffers=t_buffers)
@@ -198,8 +211,10 @@ def _run_distill(args, ctx: RunContext, train_batches, save_dir) -> int:
         if not all(np.isfinite(v) for v in metrics.values()):
             print("non-finite distillation metrics; stopping", file=sys.stderr)
             return 1
-        ckpt.save(os.path.join(save_dir, "student_last.ckpt"), {"params": to_jax(ctx.model)},
-                  extra={"epoch": epoch, **{k: float(v) for k, v in metrics.items()}})
+        params = to_jax(ctx.model)  # every rank: a tensor-parallel student gathers
+        if deng.par.is_writer:
+            ckpt.save(os.path.join(save_dir, "student_last.ckpt"), {"params": params},
+                      extra={"epoch": epoch, **{k: float(v) for k, v in metrics.items()}})
     print(f"Total distillation time: {time.time() - t0}s; student at "
           f"{os.path.join(save_dir, 'student_last.ckpt')} — eval/serve/"
           f"export it with --model_path + --ssl_preset {args.ssl_preset}")

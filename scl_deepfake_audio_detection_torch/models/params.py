@@ -138,10 +138,12 @@ def from_jax(tree, model: nn.Module, buffers=None) -> Dict[str, torch.Tensor]:
         raise KeyError(f"JAX tree does not match the model: missing {missing[:5]}"
                        f"{'...' if len(missing) > 5 else ''}, left over "
                        f"{extra[:5]}{'...' if len(extra) > 5 else ''}")
+    tp = getattr(model, "tensor_parallel", None)
     for k, t in out.items():
-        if tuple(t.shape) != tuple(want[k].shape):
+        shape = tuple(want[k].shape) if tp is None else tp.full_shape(k, want[k].shape)
+        if tuple(t.shape) != shape:
             raise ValueError(f"shape mismatch at {k}: JAX {tuple(t.shape)} vs "
-                             f"model {tuple(want[k].shape)}")
+                             f"model {shape}")
     return out
 
 
@@ -151,6 +153,9 @@ def load_jax_params(model: nn.Module, tree, buffers=None) -> nn.Module:
     statistics go to their initial values, as the JAX package starts a
     model whose checkpoint holds none."""
     sd = from_jax(tree, model, buffers)
+    tp = getattr(model, "tensor_parallel", None)
+    if tp is not None:  # a tensor-parallel model keeps its shards
+        sd = {k: tp.local(k, v) for k, v in sd.items()}
     model.load_state_dict(sd, strict=buffers is not None or not dict(model.named_buffers()))
     if buffers is None:
         reset_buffers(model)
@@ -167,11 +172,14 @@ def to_jax(model: nn.Module, host: bool = True):
     layout, norm ``scale``/``bias``, other parameters as they are, the
     encoder layers stacked into [L, ...] leaves.  Leaves are fp32 numpy
     arrays, or with ``host=False`` tensors on the model's device (shapes
-    only on ``meta``)."""
+    only on ``meta``).  A tensor-parallel model's shards are gathered whole
+    (a collective: every rank of its model group calls this)."""
     flat: Dict[tuple, object] = {}
     stacked: Dict[tuple, Dict[int, object]] = {}
-    for _, path, p in _param_leaves(model):
-        arr = _host_or_device(jax_layout(SEP.join(path), p.detach()), host)
+    tp = getattr(model, "tensor_parallel", None)
+    for name, path, p in _param_leaves(model):
+        p = p.detach() if tp is None else tp.full(name, p)
+        arr = _host_or_device(jax_layout(SEP.join(path), p), host)
         n = _stack_end(path)
         if n:
             stacked.setdefault(path[:n] + path[n + 1:], {})[int(path[n])] = arr

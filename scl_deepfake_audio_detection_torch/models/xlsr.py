@@ -39,6 +39,7 @@ from torch.utils.checkpoint import (
 from scl_deepfake_audio_detection_torch.models.base import Conv1d, LayerNorm, Linear
 from scl_deepfake_audio_detection_torch.ops.attention import IMPLS, self_attention
 from scl_deepfake_audio_detection_torch.ops.layers import dropout, gelu, linear
+from scl_deepfake_audio_detection_torch.parallel.mesh import copy_to_model, reduce_from_model
 from scl_deepfake_audio_detection_torch.utils.device import torch_dtype
 
 
@@ -278,12 +279,20 @@ def _layer_generator(seed: Optional[int], site: int,
 class EncoderLayer(nn.Module):
     """Pre-norm transformer layer (fairseq ``layer_norm_first=True``), as two
     blocks: attention up to the o-projection (``attn_out``), then the
-    residual and the feed-forward block."""
+    residual and the feed-forward block.
+
+    Tensor parallel (``tp`` = (model group, M, index), set by
+    ``parallel/mesh.shard_params``, which leaves this rank's shards in the
+    linears): the layer runs num_heads / M heads and ffn_dim / M hidden
+    units; q, k, v and fc1 are column-parallel (their input's gradient is
+    summed over the group), o and fc2 row-parallel, each product summed by
+    one all-reduce over the group before its bias is added, once."""
 
     def __init__(self, cfg: XLSRConfig):
         super().__init__()
         d, f = cfg.encoder_dim, cfg.ffn_dim
         self.cfg = cfg
+        self.tp = None
         self.ln_attn = LayerNorm(d, cfg.layer_norm_eps)
         self.attn = SelfAttention(d)
         self.ln_ffn = LayerNorm(d, cfg.layer_norm_eps)
@@ -298,6 +307,24 @@ class EncoderLayer(nn.Module):
         cfg = self.cfg
         return linear(x, self._weight(lin), lin.bias, torch_dtype(cfg.compute_dtype),
                       cfg.use_fast_bwd)
+
+    def _row_parallel(self, lin: Linear, x: torch.Tensor) -> torch.Tensor:
+        """o and fc2: under tensor parallelism this rank's partial product,
+        summed over the model group, then the bias."""
+        if self.tp is None:
+            return self._linear(lin, x)
+        cfg = self.cfg
+        y = linear(x, self._weight(lin), None, torch_dtype(cfg.compute_dtype), cfg.use_fast_bwd)
+        return reduce_from_model(y, self.tp[0]) + lin.bias.float()
+
+    def _column_input(self, y: torch.Tensor) -> torch.Tensor:
+        """The replicated input of q, k, v and fc1: its gradient sums the
+        model ranks' parts."""
+        return y if self.tp is None else copy_to_model(y, self.tp[0])
+
+    def _part(self, dim: int):
+        """``ops/layers.dropout``'s ``part`` of a tensor split on ``dim``."""
+        return None if self.tp is None else (dim, self.tp[2], self.tp[1])
 
     def _qkv(self, y: torch.Tensor):
         """q (scaled by hd**-0.5 after the fp32 product), k, v, each fp32
@@ -316,30 +343,34 @@ class EncoderLayer(nn.Module):
         """x -> attn_out, the fp32 o-projection output."""
         cfg = self.cfg
         cdtype = torch_dtype(cfg.compute_dtype)
-        b, t, d = x.shape
-        h, hd = cfg.num_heads, cfg.head_dim
+        b, t, _ = x.shape
+        hd = cfg.head_dim
+        h = cfg.num_heads // (1 if self.tp is None else self.tp[1])
         # q, k, v go to the compute dtype in [B, H, T, D], contiguous for
         # the kernel
-        q, k, v = self._qkv(self.ln_attn(x))
+        q, k, v = self._qkv(self._column_input(self.ln_attn(x)))
         q, k, v = (z.reshape(b, t, h, hd).transpose(1, 2)
                    .to(cdtype, memory_format=torch.contiguous_format).contiguous()
                    for z in (q, k, v))
         a = self_attention(q, k, v, kv_len=kv_len, impl=cfg.attention_impl)
-        a = dropout(a, cfg.attention_dropout, train, _layer_generator(seed, 0, x.device))
-        a = a.transpose(1, 2).reshape(b, t, d)
-        return self._linear(self.attn.o, a)
+        a = dropout(a, cfg.attention_dropout, train, _layer_generator(seed, 0, x.device),
+                    part=self._part(1))
+        a = a.transpose(1, 2).reshape(b, t, h * hd)
+        return self._row_parallel(self.attn.o, a)
 
     def _residual(self, x, attn_out, train, seed):
         gen = _layer_generator(seed, 1, x.device)
         return x + dropout(attn_out, self.cfg.dropout, train, gen).to(x.dtype)
 
     def _ffn_act(self, x1):
-        return gelu(self._linear(self.fc1, self.ln_ffn(x1)), self.cfg.approx_gelu)
+        h = self._column_input(self.ln_ffn(x1))
+        return gelu(self._linear(self.fc1, h), self.cfg.approx_gelu)
 
     def _ffn_out(self, x1, act, train, seed):
         cfg = self.cfg
-        act = dropout(act, cfg.activation_dropout, train, _layer_generator(seed, 2, x1.device))
-        y = self._linear(self.fc2, act)
+        act = dropout(act, cfg.activation_dropout, train, _layer_generator(seed, 2, x1.device),
+                      part=self._part(act.dim() - 1))
+        y = self._row_parallel(self.fc2, act)
         return x1 + dropout(y, cfg.dropout, train,
                             _layer_generator(seed, 3, x1.device)).to(x1.dtype)
 

@@ -17,7 +17,8 @@ the JAX [in, out] and [K, Cin/groups, Cout] leaves once, at load).
 - ``max_pool2d`` keeps the floor-division output size (VALID);
 - ``batch_norm`` computes in fp32 and returns the input dtype; in training
   it normalises with the batch's biased variance and moves the running
-  statistics towards its mean and unbiased variance;
+  statistics towards its mean and unbiased variance, over every data
+  shard of a data-parallel step (``parallel/mesh.batch_shard``);
 - ``gelu`` is exact (erf) unless ``approximate`` selects the tanh form;
 - ``embedding`` gathers rows of a [num, dim] table, which keeps that
   layout in both packages.
@@ -37,6 +38,7 @@ import torch
 import torch.nn.functional as F
 
 from scl_deepfake_audio_detection_torch.ops import custom_ops  # noqa: F401  (registers the ops)
+from scl_deepfake_audio_detection_torch.parallel import mesh as _mesh
 
 from scl_deepfake_audio_detection_torch.utils.tree import keyed_leaves
 
@@ -57,16 +59,35 @@ def leaky_relu(x: torch.Tensor, slope: float = 0.01) -> torch.Tensor:
 
 def dropout(x: torch.Tensor, rate: float, train: bool = False,
             generator: Optional[torch.Generator] = None,
-            mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+            mask: Optional[torch.Tensor] = None,
+            part: Optional[Tuple[int, int, int]] = None) -> torch.Tensor:
     """Identity at eval or rate 0.  In training, a Bernoulli keep-mask at
     1 - rate drawn from ``generator`` (or the given boolean ``mask``, which
-    lets a test hand in another framework's draws), and x / keep where kept."""
+    lets a test hand in another framework's draws), and x / keep where kept.
+
+    The draws do not depend on how a step is split: under a data-parallel
+    step (``parallel/mesh.batch_shard``) the mask is the whole step's (drawn,
+    or given) and x takes its shard's rows; ``part`` = (dim, index, count)
+    says x is part ``index`` of ``count`` equal parts on ``dim`` of the
+    tensor the mask is drawn for (a tensor-parallel shard)."""
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
+    shard = _mesh.current_shard()
+    rows = shard is not None and x.shape[0] == shard.stop - shard.start
     if mask is None:
-        u = torch.rand(x.shape, device=x.device, generator=generator)
-        mask = u < keep
+        shape = list(x.shape)
+        if rows:
+            shape[0] = shard.total
+        if part is not None:
+            shape[part[0]] *= part[2]
+        mask = torch.rand(shape, device=x.device, generator=generator) < keep
+    if rows and mask.shape[0] == shard.total:
+        mask = mask[shard.start:shard.stop]
+    if part is not None and mask.shape[part[0]] != x.shape[part[0]]:
+        dim, index, count = part
+        n = mask.shape[dim] // count
+        mask = mask.narrow(dim, index * n, n)
     return torch.where(mask.to(x.device), x / keep, torch.zeros_like(x))
 
 
@@ -258,8 +279,34 @@ def batch_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     fewer than 2.  Eval normalises with the running statistics and leaves
     them as they are."""
     acc = torch.promote_types(x.dtype, torch.float32)
+    shard = _mesh.current_shard() if train else None
+    if shard is not None:
+        return _synced_batch_norm(x, scale, bias, mean, var, eps, momentum, acc, shard)
     y = F.batch_norm(x.to(acc), mean, var, scale.to(acc), bias.to(acc), training=train,
                      momentum=momentum, eps=eps)
+    return y.to(x.dtype)
+
+
+def _synced_batch_norm(x, scale, bias, mean, var, eps, momentum, acc, shard):
+    """Training batch norm over the values of every data shard (the JAX
+    package's batch norm of a sharded batch; each shard holds as many, of
+    its own clips, whether x is [N, C, ...] or the graph layers' [N * nodes,
+    C]): the channel sums, then the sums of squared deviations from the
+    whole batch's mean, each through a differentiable all-reduce over the
+    data ranks; every rank moves the running statistics alike."""
+    xa = x.to(acc)
+    axes = [0] + list(range(2, x.dim()))
+    n = shard.size * (xa.numel() // xa.shape[1])
+    if n < 2:
+        raise ValueError("batch norm in training needs more than one value a channel")
+    shape = [1, -1] + [1] * (x.dim() - 2)
+    m = _mesh.all_reduce_sum(xa.sum(axes), shard.group) / n
+    d = xa - m.view(shape)
+    v = _mesh.all_reduce_sum((d * d).sum(axes), shard.group) / n
+    with torch.no_grad():
+        mean.mul_(1.0 - momentum).add_(momentum * m.detach())
+        var.mul_(1.0 - momentum).add_(momentum * v.detach() * (n / (n - 1)))
+    y = d * torch.rsqrt(v + eps).view(shape) * scale.to(acc).view(shape) + bias.to(acc).view(shape)
     return y.to(x.dtype)
 
 

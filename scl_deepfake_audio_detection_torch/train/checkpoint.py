@@ -191,6 +191,12 @@ def seed_key_data(seed: int) -> np.ndarray:
     return np.array([0, seed & 0xFFFFFFFF], np.uint32)
 
 
+def _full_shape(model: torch.nn.Module, name: str):
+    shape = model.get_parameter(name).shape
+    tp = getattr(model, "tensor_parallel", None)
+    return tuple(shape) if tp is None else tp.full_shape(name, shape)
+
+
 def pack_opt_leaves(model: torch.nn.Module, optimizer) -> Dict[str, np.ndarray]:
     """The optimizer's state as optax's leaves, ``{str(i): leaf}`` (the
     layout is in the module docstring)."""
@@ -202,7 +208,7 @@ def pack_opt_leaves(model: torch.nn.Module, optimizer) -> Dict[str, np.ndarray]:
         for path, names in jax_leaf_map(model):
             layers = [jax_layout(path, _host(arrays[f"{prefix}//{n}"])
                                  if f"{prefix}//{n}" in arrays
-                                 else np.zeros(model.get_parameter(n).shape, np.float32))
+                                 else np.zeros(_full_shape(model, n), np.float32))
                       for n in names]
             out.append(np.stack(layers) if is_stacked(path) else layers[0])
         return out
@@ -260,16 +266,23 @@ def unpack_opt_leaves(leaves, model: torch.nn.Module, optimizer) -> None:
 
 def save_train_state(path: str, model: torch.nn.Module, optimizer, epoch: int,
                      seed: int, best: float, writer: Optional[AsyncWriter] = None,
-                     es_counter: int = 0, es_metric: str = "acc") -> None:
+                     es_counter: int = 0, es_metric: str = "acc", write: bool = True) -> None:
     """Everything a resume needs, in the JAX package's layout: parameters,
     the batch-norm statistics (``buffers``, where the model has them),
     optax's optimizer leaves, the ``rng`` leaf (the resumed JAX state's, or
     ``seed``'s key), epoch, the run's seed, the early-stop watermark
     ``best``, its patience counter and which metric it tracks.  The host
-    copy is made here; with a ``writer`` the npz write runs on its thread."""
+    copy is made here; with a ``writer`` the npz write runs on its thread.
+
+    Over a mesh the tensor-parallel shards and the ZeRO-1 slices are
+    gathered whole first (every rank calls this), and only a rank with
+    ``write`` writes: the file is the one-process file, which either
+    package resumes at any world size."""
     rng = optimizer.rng_key_data
     state = {"params": to_jax(model), "opt_state_leaves": pack_opt_leaves(model, optimizer),
              "rng": seed_key_data(seed) if rng is None else rng}
+    if not write:
+        return
     buffers = buffers_to_jax(model)
     if buffers:
         state["buffers"] = buffers

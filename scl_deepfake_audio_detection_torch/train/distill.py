@@ -13,10 +13,13 @@ student's training forward, and one update of the student:
 
 The models return log-softmax outputs; feeding them to the temperature KLD
 is exact, since ``log_softmax(log_probs / T) == log_softmax(logits / T)``.
-It runs on one device: the teacher's parameters are frozen
-(``requires_grad`` False) and never change, the student's go through the
-port's ``train/optim`` AdamW, at learning rate 0 until the caller sets one
-(``set_learning_rate``).  A student with batch-norm buffers is refused, as
+The teacher's parameters are frozen (``requires_grad`` False) and never
+change, the student's go through the port's ``train/optim`` AdamW, at
+learning rate 0 until the caller sets one (``set_learning_rate``).  Over a
+('data', 'model') mesh (``mesh``, as ``Engine``'s) each data rank runs its
+shard of the step's rows through both models, the gradients and metrics
+are averaged over 'data', and under a model axis above 1 both XLS-R
+encoders run tensor parallel.  A student with batch-norm buffers is refused, as
 in the JAX package: its running statistics would need the ``Engine``'s
 state handling.  ``DistillConfig`` has no ``grad_clip_norm``: no caller of
 the JAX one sets it (its CLI does not forward ``--grad_clip_norm``).
@@ -33,12 +36,19 @@ from torch import nn
 from scl_deepfake_audio_detection_torch.models.base import model_buffers
 from scl_deepfake_audio_detection_torch.models.params import load_jax_params
 from scl_deepfake_audio_detection_torch.ops.losses import kld_distill
+from scl_deepfake_audio_detection_torch.parallel.mesh import (
+    MeshContext,
+    batch_shard,
+    shard_params,
+)
 from scl_deepfake_audio_detection_torch.train.engine import (
     Batch,
     MetricMean,
-    place_batch,
+    mesh_for,
+    place_shard,
     step_generator,
 )
+from scl_deepfake_audio_detection_torch.utils.config import TrainConfig
 from scl_deepfake_audio_detection_torch.train.optim import make_optimizer
 
 
@@ -108,7 +118,8 @@ class DistillEngine:
     from (``seed``, epoch, step), as ``Engine``'s."""
 
     def __init__(self, teacher: nn.Module, student: nn.Module,
-                 cfg: Optional[DistillConfig] = None, seed: int = 0):
+                 cfg: Optional[DistillConfig] = None, seed: int = 0, mesh=None,
+                 local_batches: bool = False):
         self.teacher = teacher
         self.student = student
         self.cfg = cfg or DistillConfig()
@@ -123,6 +134,8 @@ class DistillEngine:
             )
         self.seed = seed
         self.device = next(student.parameters()).device
+        self.mesh = mesh_for(TrainConfig(), self.device, mesh)
+        self.par = MeshContext.from_mesh(self.mesh, local_batches)
         self.optimizer = None
 
     def init_state(self, teacher_params=None, student_params=None, teacher_buffers=None):
@@ -135,11 +148,15 @@ class DistillEngine:
         if student_params is not None:
             load_jax_params(self.student, student_params)
         self.teacher.eval().requires_grad_(False)
-        self.optimizer = make_optimizer(self.student.named_parameters(), self.cfg.weight_decay)
+        shard_params(self.teacher, self.par)
+        shard_params(self.student, self.par)
+        self.optimizer = make_optimizer(
+            self.student.named_parameters(), self.cfg.weight_decay, mesh=self.par,
+            tensor_parallel=getattr(self.student, "tensor_parallel", None))
         return self.student, self.optimizer
 
     def place_batch(self, batch: Batch) -> Batch:
-        return place_batch(batch, self.device)
+        return place_shard(batch, self.par, self.device)
 
     def step_generator(self, epoch: int, step: int) -> torch.Generator:
         return step_generator(self.seed, epoch, step, self.device)
@@ -147,8 +164,10 @@ class DistillEngine:
     def step(self, batch: Batch, generator: Optional[torch.Generator] = None,
              dropout_masks=None) -> Dict[str, torch.Tensor]:
         """One distillation step on a placed batch."""
-        return _distill_step(self.student, self.teacher, self.optimizer, batch, self.cfg,
-                             generator, dropout_masks)
+        with batch_shard(batch.get("_shard")):
+            metrics = _distill_step(self.student, self.teacher, self.optimizer, batch,
+                                    self.cfg, generator, dropout_masks)
+        return self.par.mean_metrics(metrics)
 
     def run_epoch(self, batches: Iterable[Batch], epoch: int = 0) -> Dict[str, float]:
         """One pass over {'wav': [N, T] or [G, V, T], 'labels'} batches; the

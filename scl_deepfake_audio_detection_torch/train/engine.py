@@ -16,6 +16,18 @@ normalises with their statistics and moves the running ones once (the JAX
 package's sync-BN); eval and scoring read them and leave them.  Dropout
 draws come from a ``torch.Generator`` seeded from (``cfg.seed``, epoch,
 step), so a run is reproducible on one device type.
+
+Over a ('data', 'model') mesh (``cfg.mesh_shape`` in a process group, or
+a ``DeviceMesh``; ``parallel/mesh``) each rank runs its data shard of the
+step's anchor groups (the whole batch when the groups do not divide), under
+``parallel/mesh.batch_shard``: dropout draws the whole batch's masks and
+keeps its rows, batch norm takes its moments over every shard, and
+``loss_scope='global'`` gathers the outputs of every shard before the loss.
+The optimizer averages the gradients over 'data' (``train/optim``); the
+metrics, dev scores and early-stop decisions are reduced over 'data', so
+every rank takes the same ones; only rank 0 writes files, while every rank
+joins the gathers of a save.  Under ``mesh_shape`` [D, M > 1] the XLS-R
+encoder runs tensor parallel (``parallel/mesh.shard_params``).
 """
 
 from __future__ import annotations
@@ -32,6 +44,14 @@ from torch import nn
 from scl_deepfake_audio_detection_torch.models.base import ModelOutput, eval_scores
 from scl_deepfake_audio_detection_torch.models.params import load_jax_params
 from scl_deepfake_audio_detection_torch.ops.layers import dewire_pcm16
+from scl_deepfake_audio_detection_torch.parallel.mesh import (
+    MeshContext,
+    batch_shard,
+    is_distributed,
+    make_mesh,
+    shard_params,
+    world_size,
+)
 from scl_deepfake_audio_detection_torch.train import checkpoint as ckpt
 from scl_deepfake_audio_detection_torch.train.metrics import compute_eer
 from scl_deepfake_audio_detection_torch.train.optim import (
@@ -54,6 +74,31 @@ def score_step(model: nn.Module, wav) -> torch.Tensor:
     with torch.inference_mode():
         wav = torch.as_tensor(wav).to(device, non_blocking=True)
         return eval_scores(model, model.apply(dewire_pcm16(wav), train=False))
+
+
+class ReplicaScorer:
+    """``score_step`` over one model replica per device in one process: a
+    batch that divides splits into equal consecutive slices, one a replica,
+    launched in turn (each card works while the next is fed) and gathered
+    on the first device; a batch that does not divide runs whole on the
+    first (the JAX package replicates it).  Replicas on one device share
+    the model."""
+
+    def __init__(self, model: nn.Module, devices):
+        import copy
+
+        self.devices = [torch.device(d) for d in devices]
+        first = self.devices[0]
+        self.models = [model if d == first else copy.deepcopy(model).to(d)
+                       for d in self.devices]
+
+    def __call__(self, wav) -> torch.Tensor:
+        n, b = len(self.models), wav.shape[0]
+        if n == 1 or b % n:
+            return score_step(self.models[0], wav)
+        k = b // n
+        outs = [score_step(m, wav[i * k:(i + 1) * k]) for i, m in enumerate(self.models)]
+        return torch.cat([o.to(self.devices[0], non_blocking=True) for o in outs])
 
 
 class MetricMean:
@@ -85,12 +130,18 @@ def _group(out: ModelOutput, g: int, v: int, i: int) -> ModelOutput:
 
 def _loss_and_metrics(model, batch: Batch, train: bool, loss_scope: str,
                       generator: Optional[torch.Generator] = None,
-                      dropout_masks=None):
-    """-> (total loss, metrics, model output)."""
+                      dropout_masks=None, par: Optional[MeshContext] = None):
+    """-> (total loss, metrics, model output).  On a data shard
+    (``batch["_shard"]``) the 'global' scope's loss takes every shard's
+    outputs and labels."""
     wav, labels = batch["wav"], batch["labels"]
     g, v = wav.shape[0], wav.shape[1]
     out = model.apply(wav.reshape(g * v, -1), train=train, generator=generator,
                       dropout_masks=dropout_masks)
+    shard = batch.get("_shard")
+    if loss_scope == "global" and shard is not None:
+        out = ModelOutput(*(None if x is None else par.gather_rows(x, shard) for x in out))
+        labels = par.gather_data(labels)
     if loss_scope == "global":
         terms = model.loss(out, labels.reshape(-1))
     else:  # per anchor group, then the mean over groups
@@ -129,20 +180,46 @@ def place_batch(batch: Batch, device) -> Batch:
             for k, v in batch.items() if isinstance(v, (np.ndarray, torch.Tensor))}
 
 
-class Engine:
-    """Owns the model, its optimizer and the epoch loop."""
+def place_shard(batch: Batch, par: MeshContext, device) -> Batch:
+    """This rank's data shard of ``batch`` on the device, with the shard
+    under ``_shard`` when the step is split."""
+    local, shard = par.shard_batch(batch)
+    placed = place_batch(local, device)
+    if shard is not None:
+        placed["_shard"] = shard
+    return placed
 
-    def __init__(self, model: nn.Module, train_cfg: Optional[TrainConfig] = None):
+
+def mesh_for(cfg: TrainConfig, device: torch.device, mesh=None):
+    """The ``DeviceMesh`` a config asks for: ``mesh`` when given, else
+    ``cfg.mesh_shape`` (every rank on 'data' when None) over the process
+    group (a group of one too); None for a process in no group.  A shape
+    whose product is not the number of ranks raises ``ValueError``, as the
+    JAX package's ``make_mesh`` does for its devices."""
+    if mesh is not None:
+        return mesh
+    shape = cfg.mesh_shape
+    world = world_size()
+    if shape is not None and int(np.prod(shape)) != world:
+        raise ValueError(f"mesh shape {tuple(shape)} != {world} ranks")
+    return make_mesh(shape, device.type) if is_distributed() else None
+
+
+class Engine:
+    """Owns the model, its optimizer and the epoch loop.  ``mesh``: a
+    ``DeviceMesh`` in place of ``cfg.mesh_shape``; ``local_batches``: each
+    rank's loader yields its own data shard (``--multihost``), not the
+    global batch."""
+
+    def __init__(self, model: nn.Module, train_cfg: Optional[TrainConfig] = None,
+                 mesh=None, local_batches: bool = False):
         self.cfg = cfg = train_cfg or TrainConfig()
-        if cfg.mesh_shape is not None and int(np.prod(cfg.mesh_shape)) != 1:
-            raise NotImplementedError(f"mesh_shape={cfg.mesh_shape} not ported yet "
-                                      "(the port trains on one device)")
-        if cfg.zero1:
-            raise NotImplementedError("zero1=True not ported yet")
         if cfg.loss_scope not in ("group", "global"):
             raise ValueError(f"loss_scope must be 'group' or 'global', got {cfg.loss_scope!r}")
         self.model = model
         self.device = next(model.parameters()).device
+        self.mesh = mesh_for(cfg, self.device, mesh)
+        self.par = MeshContext.from_mesh(self.mesh, local_batches)
         self.optimizer = None
 
     # ----------------------------------------------------------- state setup
@@ -153,14 +230,17 @@ class Engine:
         optimizer)."""
         if params is not None:
             load_jax_params(self.model, params, buffers)
+        shard_params(self.model, self.par)
         self.optimizer = make_optimizer(
             self.model.named_parameters(), self.cfg.weight_decay,
             grad_clip_norm=self.cfg.grad_clip_norm,
-            grad_accum_steps=self.cfg.grad_accum_steps)
+            grad_accum_steps=self.cfg.grad_accum_steps, mesh=self.par,
+            tensor_parallel=getattr(self.model, "tensor_parallel", None),
+            zero1=self.cfg.zero1, zero1_min_size=self.cfg.zero1_min_size)
         return self.model, self.optimizer
 
     def place_batch(self, batch: Batch) -> Batch:
-        return place_batch(batch, self.device)
+        return place_shard(batch, self.par, self.device)
 
     def step_generator(self, epoch: int, step: int) -> torch.Generator:
         return step_generator(self.cfg.seed, epoch, step, self.device)
@@ -173,28 +253,39 @@ class Engine:
         JAX step's from its key; ``dropout_masks`` replaces the head's draws.
         Returns the step's metrics as device scalars (of the forward before
         the update)."""
-        total, metrics, _ = _loss_and_metrics(
-            self.model, batch, True, self.cfg.loss_scope, generator, dropout_masks)
-        total.backward()
+        with batch_shard(batch.get("_shard")):
+            total, metrics, _ = _loss_and_metrics(
+                self.model, batch, True, self.cfg.loss_scope, generator, dropout_masks,
+                self.par)
+            total.backward()
         self.optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return self.par.mean_metrics({k: v.detach() for k, v in metrics.items()})
 
     def eval_step(self, batch: Batch) -> Dict[str, torch.Tensor]:
         with torch.inference_mode():
-            return _loss_and_metrics(self.model, batch, False, self.cfg.loss_scope)[1]
+            return self.par.mean_metrics(_loss_and_metrics(
+                self.model, batch, False, self.cfg.loss_scope, par=self.par)[1])
 
     def eval_step_scored(self, batch: Batch):
         """Eval step that also returns the per-view bonafide score column and
-        the labels (``--early_metric eer``)."""
+        the labels (``--early_metric eer``), of every data shard."""
         with torch.inference_mode():
             _, metrics, out = _loss_and_metrics(self.model, batch, False,
-                                                self.cfg.loss_scope)
+                                                self.cfg.loss_scope, par=self.par)
             cols = eval_scores(self.model, out)
             score = cols[:, 1] if cols.dim() == 2 else cols.reshape(-1)
-            return metrics, score.float(), batch["labels"].reshape(-1)
+            labels = batch["labels"].reshape(-1)
+            if batch.get("_shard") is not None:
+                score, labels = self.par.gather_data(score), self.par.gather_data(labels)
+            return self.par.mean_metrics(metrics), score.float(), labels
 
     def score_step(self, wav) -> torch.Tensor:
-        return score_step(self.model, wav)
+        """``score_step`` of the model; over 'data' each rank scores its
+        slice of the batch and the rows are gathered (the whole batch on
+        every rank when it does not divide)."""
+        local, shard = self.par.shard_batch({"wav": wav})
+        cols = score_step(self.model, local["wav"])
+        return cols if shard is None else self.par.gather_data(cols)
 
     # ---------------------------------------------------------------- epochs
     def run_epoch(self, batches: Iterable[Batch], epoch: int = 0) -> Dict[str, float]:
@@ -267,18 +358,22 @@ class Engine:
                 print("resume: EarlyStop patience already exhausted at save "
                       "time; nothing to train")
         ckpt_every = max(int(cfg.ckpt_every), 1)
-        writer = ckpt.AsyncWriter() if cfg.async_ckpt else None
+        # every rank joins a save's gathers; rank 0 alone writes files
+        writes = self.par.is_writer
+        writer = ckpt.AsyncWriter() if cfg.async_ckpt and writes else None
         last_epoch = cfg.start_epoch + cfg.num_epochs - 1
-        metrics_path = os.path.join(save_dir, "metrics.jsonl") if save_dir else None
-        if save_dir:
+        metrics_path = os.path.join(save_dir, "metrics.jsonl") if save_dir and writes else None
+        if save_dir and writes:
             os.makedirs(save_dir, exist_ok=True)
-        tb = ScalarWriter(tensorboard_dir)
+        tb = ScalarWriter(tensorboard_dir if writes else None)
+        if not writes:
+            profile_dir = None
 
         def save(name: str, epoch: int) -> None:
             ckpt.save_train_state(os.path.join(save_dir, name), self.model,
                                   self.optimizer, epoch, cfg.seed, stopper.best,
                                   writer=writer, es_counter=stopper.counter,
-                                  es_metric=es_metric)
+                                  es_metric=es_metric, write=writes)
 
         records = []
         for epoch in range(cfg.start_epoch, cfg.start_epoch + cfg.num_epochs):

@@ -80,8 +80,9 @@ class DataConfig:
 class TrainConfig:
     """Hyperparameters the reference takes on the CLI (``main.py:226-241``).
     ``compute_dtype`` and ``remat`` are read by whoever builds the model
-    (the XLS-R config carries them); ``mesh_shape`` beyond one device and
-    ``zero1`` are not ported yet (``Engine`` raises)."""
+    (the XLS-R config carries them); ``mesh_shape`` (data, model) and
+    ``zero1`` lay out a run over the ranks of a process group
+    (``parallel/mesh``, ``Engine``)."""
 
     batch_size: int = 1  # anchor groups per step (each group is V views)
     num_epochs: int = 100
@@ -95,7 +96,7 @@ class TrainConfig:
     comment: Optional[str] = None
     compute_dtype: str = "bfloat16"  # matmul dtype; layer norm and softmax stay fp32
     remat: bool = True  # recompute encoder layers in the backward
-    mesh_shape: Optional[List[int]] = None  # (data, model); None = one device here
+    mesh_shape: Optional[List[int]] = None  # (data, model); None = every rank on 'data'
     loss_scope: str = "group"  # 'group': SupCon per anchor group; 'global': one batch
     grad_clip_norm: Optional[float] = None  # optax clip_by_global_norm
     grad_accum_steps: int = 1  # optax MultiSteps

@@ -10,9 +10,10 @@
 - the JAX package reads the port's ``last.ckpt``, and the JAX ``--eval`` and
   the port's ``--eval`` score it within 1e-4 (fp32, summation order only);
 - ``--show_params`` prints the JAX CLI's table;
-- each flag of a later slice exits 2 with "not ported yet" (``--distill_from``
-  now exits as the JAX CLI does), and without ``--device cpu`` and without
-  a card the CLI exits 1 saying so.
+- the flags that pinned later slices run their modes (``--distill_from``
+  exits as the JAX CLI does; ``--multihost``, ``--mesh``, ``--zero1`` run
+  as on one host), and without ``--device cpu`` and without a card the CLI
+  exits 1 saying so.
 """
 
 import contextlib
@@ -198,17 +199,28 @@ def test_show_params_prints_the_jax_table(mini_db, capsys):
     (["--distill_from", "t.ckpt"], "Slice H"), (["--multihost"], "Slice H"),
     (["--mesh", "1,1"], "Slice H"), (["--zero1"], "Slice H"),
 ])
-def test_later_slice_flags_exit_2(argv, where, capsys, mini_db, tmp_path, monkeypatch):
-    """Slice E's flags are ported; the flags of Slice H exit 2 naming their
-    slice, in any mode.  The BTSE config of Slice G2 (the cases that exited
-    2 before it was ported) now runs each mode, on ``mini_db`` at conf-5's
-    model: ``--eval --predict`` writes a row per utterance, training writes
-    ``last.ckpt``, ``--serve`` replies.  ``--distill_from`` (Slice H1) is
-    ported: with a ``.pth`` and a ``.ckpt`` teacher of the tiny preset and
-    conf-aasist's model as the student on ``mini_db``, the port exits as the
-    JAX CLI does (2, a batch-norm student), with the JAX CLI's stderr
-    (``tests/test_torch_distill_cli.py`` distils)."""
+def test_later_slice_flags_exit_2(argv, where, capsys, mini_db, tmp_path, monkeypatch,
+                                  request):
+    """Every flag is ported now; the cases that exited 2 before their slice
+    was ported run their mode.  The BTSE config of Slice G2 runs each mode
+    on ``mini_db`` at conf-5's model: ``--eval --predict`` writes a row per
+    utterance, training writes ``last.ckpt``, ``--serve`` replies.
+    ``--distill_from`` (Slice H1): with a ``.pth`` and a ``.ckpt`` teacher
+    of the tiny preset and conf-aasist's model as the student on
+    ``mini_db``, the port exits as the JAX CLI does (2, a batch-norm
+    student), with the JAX CLI's stderr (``tests/test_torch_distill_cli.py``
+    distils).  ``--multihost``, ``--mesh`` and ``--zero1`` (Slice H2) run
+    as the JAX CLI runs them on one host of one device: ``--multihost``
+    with no cluster prints the JAX CLI's notice and scores or trains as
+    one process, ``--mesh 1,1`` trains in a process group of one,
+    ``--zero1`` over one data rank splits nothing, so the three training
+    runs give the plain run's ``last.ckpt``; ``--serve --mesh 2,1`` splits
+    each batch over two replicas and replies as ``--serve``
+    (``tests/test_torch_parallel_cli.py`` runs them over ranks)."""
     flags = ["--device", "cpu", "--ssl_preset", "tiny"]
+    if where == "Slice H" and "--distill_from" not in argv:
+        _run_on_one_host(argv, flags, capsys, mini_db, tmp_path, monkeypatch, request)
+        return
     if "--distill_from" in argv:
         from scl_deepfake_audio_detection_tpu.cli import main as jax_main
         from scl_deepfake_audio_detection_torch.models import convert
@@ -264,6 +276,64 @@ def test_later_slice_flags_exit_2(argv, where, capsys, mini_db, tmp_path, monkey
     assert port_main(argv + flags) == 2
     err = capsys.readouterr().err
     assert "not ported yet" in err and where in err
+
+
+@pytest.fixture(scope="module")
+def plain_train(mini_db, tmp_path_factory):
+    """One plain training run's ``last.ckpt`` parameters."""
+    root, cfg, _ = mini_db
+    out = tmp_path_factory.mktemp("plain_train")
+    rc, _ = _run(["--config", cfg, "--database_path", str(root), "--out_dir", str(out), *TRAIN])
+    assert rc == 0
+    (path,) = out.glob("*/last.ckpt")
+    return _ckpt_params(path)
+
+
+def _ckpt_params(path):
+    from scl_deepfake_audio_detection_torch.train import checkpoint as pckpt
+    from scl_deepfake_audio_detection_torch.utils.tree import flatten
+
+    return flatten(pckpt.load(str(path))[0]["params"])
+
+
+def _run_on_one_host(argv, flags, capsys, mini_db, tmp_path, monkeypatch, request):
+    root, cfg, utts = mini_db
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    base = ["--config", cfg, "--database_path", str(root), "--compute_dtype", "float32"]
+    if "--eval" in argv:
+        plain, multi = tmp_path / "plain.txt", tmp_path / "multi.txt"
+        assert port_main(base + flags + ["--eval", "--eval_output", str(plain)]) == 0
+        capsys.readouterr()
+        assert port_main(base + flags + argv + ["--eval_output", str(multi)]) == 0
+        assert "--multihost: no cluster detected" in capsys.readouterr().err
+        assert open(multi).read() == open(plain).read()
+        return
+    if "--serve" in argv:
+        lines = "".join(f"{u}\t{root}/eval/{u}\n" for u in utts[:2])
+        replies = []
+        for extra in ([], argv[1:]):
+            monkeypatch.setattr("sys.stdin", io.StringIO(lines))
+            capsys.readouterr()
+            assert port_main(base + flags + ["--serve", "--serve_batch", "2"] + extra) == 0
+            replies.append([ln.split("\t") for ln in capsys.readouterr().out.splitlines()
+                            if "\t" in ln])
+        assert [r[0] for r in replies[1]] == [r[0] for r in replies[0]] == utts[:2]
+        np.testing.assert_allclose([float(r[1]) for r in replies[1]],
+                                   [float(r[1]) for r in replies[0]], rtol=0, atol=1e-6)
+        return
+    want = request.getfixturevalue("plain_train")
+    out = tmp_path / "out"
+    capsys.readouterr()
+    rc, _ = _run(["--config", cfg, "--database_path", str(root), "--out_dir", str(out),
+                  *TRAIN, *argv])
+    assert rc == 0
+    if "--multihost" in argv:
+        assert "--multihost: no cluster detected" in capsys.readouterr().err
+    (path,) = out.glob("*/last.ckpt")
+    got = _ckpt_params(path)
+    for k, w in want.items():
+        np.testing.assert_array_equal(got[k], w, err_msg=k)
 
 
 def test_cli_without_a_card_exits_nonzero_and_says_so(mini_db, capsys):

@@ -644,3 +644,67 @@ def test_distillation_step_on_the_card_matches_the_plain_versions():
     _assert_grads_close(g, g_ref)
     for n in p_ref:
         assert (p[n] - p_ref[n]).abs().max().item() <= 1e-5, n
+
+
+@pytest.mark.gpu
+def test_nccl_group_of_one_zero1_step_equals_the_plain_step():
+    """A process group of one over NCCL, the mesh (1, 1) and ZeRO-1 (which
+    splits nothing over one data rank): the train step is the plain one."""
+    _need_card()
+    from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.parallel import mesh as M
+    from scl_deepfake_audio_detection_torch.train.engine import Engine
+    from scl_deepfake_audio_detection_torch.train.optim import set_learning_rate
+    from scl_deepfake_audio_detection_torch.utils.config import TrainConfig
+
+    rng = np.random.default_rng(0)
+    batch = {"wav": (0.2 * rng.normal(size=(2, 4, 8000))).astype(np.float32),
+             "labels": np.tile(np.array([1, 1, 0, 0], np.float32), (2, 1))}
+    params = {}
+    for label in ("plain", "nccl"):
+        if label == "nccl":
+            M.init_process_group("cuda")
+            assert torch.distributed.get_backend() == "nccl"
+        try:
+            cfg = TrainConfig(seed=7) if label == "plain" else \
+                TrainConfig(seed=7, mesh_shape=[1, 1], zero1=True, zero1_min_size=1)
+            eng = Engine(LinearNLL(ssl=XLSRConfig.tiny(), emb_dim=16, device="cuda", seed=3),
+                         cfg)
+            eng.init_state()
+            set_learning_rate(eng.optimizer, 1e-4)
+            for i in range(2):
+                eng.train_step(eng.place_batch(batch), eng.step_generator(0, i))
+            assert (eng.mesh is None) == (label == "plain")
+            params[label] = {n: p.detach().clone() for n, p in eng.model.named_parameters()}
+        finally:
+            M.leave()
+    for n, p in params["plain"].items():
+        assert torch.equal(p, params["nccl"][n]), n
+
+
+@pytest.mark.gpu
+def test_tensor_parallel_layer_at_8_heads_a_rank_matches_the_full_layer(tmp_path, monkeypatch):
+    """An XLS-R 300M encoder layer split over two ranks on one card (gloo,
+    which lets two ranks share a card): each rank runs 8 heads of 64
+    through the three kernels (one launch each), and its output and input
+    gradient are the whole layer's within the bf16 bound of the smoke's
+    autograd check (2^-5 of the largest)."""
+    _need_card()
+    import torch_parallel_ranks as R
+    from scl_deepfake_audio_detection_torch.parallel import mesh as M
+
+    layer, x = R._seeded_layer("cuda")
+    x.requires_grad_(True)
+    y = layer(x)
+    y.float().square().sum().backward()
+    want_y, want_dx = y.detach().float().cpu(), x.grad.float().cpu()
+    monkeypatch.setenv("SCL_DIST_BACKEND", "gloo")
+    assert M.launch(R.tp_layer_rank, 2, args=(str(tmp_path),), timeout=600) == [0, 0]
+    for r in range(2):
+        got = torch.load(tmp_path / f"rank{r}.pt", weights_only=False)
+        assert got["heads"] == 8
+        assert got["launches"] == {"flash_attn_fwd": 1, "flash_attn_bwd_dq": 1,
+                                   "flash_attn_bwd_dkv": 1}, got["launches"]
+        for a, w in ((got["y"], want_y), (got["dx"], want_dx)):
+            assert float((a - w).abs().max()) <= 2.0 ** -5 * float(w.abs().max())

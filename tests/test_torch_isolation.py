@@ -54,6 +54,28 @@ def test_the_sweep_holds_the_zoo_modules():
         assert f"{port.__name__}.{m}" in mods, m
 
 
+def test_the_sweep_holds_the_parallel_modules():
+    mods = set(_port_modules())
+    for m in ("parallel", "parallel.mesh", "parallel.memory", "parallel.pipeline",
+              "parallel.dryrun"):
+        assert f"{port.__name__}.{m}" in mods, m
+
+
+def test_the_parallel_tests_ranks_import_no_jax():
+    """The spawned ranks of the parallel tests import their functions from
+    ``tests/torch_parallel_ranks.py``: it must leave JAX out."""
+    code = (
+        "import sys\n"
+        f"sys.path.insert(0, {os.path.join(REPO, 'tests')!r})\n"
+        "import torch_parallel_ranks\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
+        "raise SystemExit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_the_sweep_holds_the_distillation_and_codec_modules():
     mods = set(_port_modules())
     for m in ("train.distill", "dsp.codec", "ops.losses"):

@@ -251,13 +251,19 @@ def test_port_cli_eval_writes_the_jax_cli_rows(tmp_path):
 @pytest.mark.parametrize("argv", [["--train"], ["--eval", "--distill_from", "t.ckpt"],
                                   ["--eval", "--mesh", "1,1"],
                                   ["--serve", "--zero1"]])
-def test_port_cli_refuses_unported_modes(argv, capsys, tmp_path):
-    """Flags of later slices exit 2.  ``--distill_from`` is ported (Slice
+def test_port_cli_refuses_unported_modes(argv, capsys, tmp_path, monkeypatch):
+    """A flag that no CLI has exits 2.  ``--distill_from`` is ported (Slice
     H1): beside ``--eval`` it is ignored as by the JAX CLI, which scores
-    without reading the teacher; the rows equal the JAX CLI's."""
+    without reading the teacher; the rows equal the JAX CLI's.  ``--mesh``
+    and ``--zero1`` are ported (Slice H2): ``--eval --mesh 1,1`` scores on
+    one replica and ``--serve --zero1`` serves (ZeRO-1 shapes only a
+    training run's optimizer), each as the JAX CLI on one device does
+    (``jax.devices`` cut to the first of the conftest's eight)."""
     from scl_deepfake_audio_detection_torch.cli import main as port_main
 
-    if "--distill_from" in argv:
+    if argv != ["--train"]:
+        import io
+
         from scl_deepfake_audio_detection_tpu.cli import main as jax_main
         from scl_deepfake_audio_detection_tpu.train import checkpoint as jckpt
 
@@ -269,6 +275,22 @@ def test_port_cli_refuses_unported_modes(argv, capsys, tmp_path):
                       "--database_path", str(db), "--model_path", str(tmp_path / "m.ckpt"),
                       "--ssl_preset", "tiny", "--compute_dtype", "float32",
                       "--batch_size", "2", "--num_workers", "1"]
+        devices = jax.devices()
+        monkeypatch.setattr(jax, "devices", lambda *a: devices[:1])
+        if "--serve" in argv:
+            lines = "".join(f"{u}\t{db / u}\n" for u in utts)
+            replies = []
+            for main, extra in ((jax_main, []), (port_main, ["--device", "cpu"])):
+                monkeypatch.setattr("sys.stdin", io.StringIO(lines))
+                capsys.readouterr()
+                assert main(run + extra) == 0
+                replies.append(sorted(ln.split("\t") for ln in
+                                      capsys.readouterr().out.splitlines() if "\t" in ln))
+            want, got = replies
+            assert [r[0] for r in got] == [r[0] for r in want] == sorted(utts)
+            np.testing.assert_allclose([float(r[1]) for r in got],
+                                       [float(r[1]) for r in want], atol=1e-5, rtol=0)
+            return
         jout, pout = str(tmp_path / "jax.txt"), str(tmp_path / "port.txt")
         assert jax_main(run + ["--eval_output", jout]) == 0
         assert port_main(run + ["--eval_output", pout, "--device", "cpu"]) == 0

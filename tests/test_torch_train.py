@@ -221,14 +221,29 @@ def test_dropout_draws_agree_across_remat(ssl_tree):
 ])
 def test_unported_training_options_raise(kw, err):
     """Every XLS-R training option is ported (the conv impls and fuse_qkv
-    build); multi-device meshes and ZeRO-1 (Slice H) raise in ``Engine``."""
+    build); an unknown remat policy raises ``err``.  ``mesh_shape`` and
+    ``zero1`` are ported (Slice H2; ``err`` is what the port raised before):
+    the port's ``Engine`` does what the JAX ``Engine`` does with them in
+    this process, one rank against the conftest's eight devices: a mesh
+    that is not the rank (device) count raises ``ValueError`` in both, and
+    ZeRO-1 builds (over one data rank it splits nothing)."""
     model = LinearNLL(ssl=PX.XLSRConfig.tiny(conv_impl="phase", fuse_qkv=True), emb_dim=16,
                       device="cpu")
-    with pytest.raises(err):
-        if "remat_policy" in kw:
+    if "remat_policy" in kw:
+        with pytest.raises(err):
             PX.XLSR(PX.XLSRConfig.tiny(**kw))
-        else:
-            PE.Engine(model, TrainConfig(**kw))
+    else:
+        def raised(build):
+            try:
+                build()
+            except Exception as e:  # noqa: BLE001 -- the type is compared
+                return type(e)
+            return None
+
+        want = raised(lambda: JE.Engine(JLinearNLL(ssl=JX.XLSRConfig.tiny(), emb_dim=16),
+                                        JTrainConfig(**kw)))
+        assert raised(lambda: PE.Engine(model, TrainConfig(**kw))) is want
+        assert want is (None if "zero1" in kw else ValueError)
     PX.XLSR(PX.XLSRConfig.tiny(compute_dtype="bfloat16", grad_stack_dtype="bfloat16"))
 
 
@@ -339,11 +354,13 @@ def test_flag_fix_ssl_trains_only_the_head(golden_tree):
 
 def test_engine_refuses_unported_settings(tmp_path):
     model = LinearNLL(ssl=PX.XLSRConfig.tiny(), emb_dim=4, device="cpu")
-    for kw, err in (({"mesh_shape": [2, 1]}, NotImplementedError),
-                    ({"zero1": True}, NotImplementedError),
+    # a two-rank mesh in one process raises as the JAX make_mesh does for a
+    # device count it does not fit; ZeRO-1 (Slice H2) builds
+    for kw, err in (({"mesh_shape": [2, 1]}, ValueError),
                     ({"loss_scope": "batch"}, ValueError)):
         with pytest.raises(err):
             PE.Engine(model, TrainConfig(**kw))
+    assert PE.Engine(model, TrainConfig(zero1=True)).mesh is None
     PE.Engine(model, TrainConfig(mesh_shape=[1, 1]))
     # tensorboard scalars and the first epoch's profiler trace are ported
     eng = PE.Engine(model, TrainConfig(num_epochs=1))
