@@ -148,7 +148,23 @@ Phases, each of which fails the script with a non-zero exit:
    a second ``[memory]`` line gives the conf-3 'attn' peak over the sum,
    the estimator's overhead); (c) ``--multihost --eval`` from two ranks at full depth,
    whose ``.part0`` and ``.part1`` rows together equal the one-process
-   rows to 6 decimals;
+   rows to 6 decimals.  Then the measurement tools and the NII trainers
+   (``phase_tools``, after distillation): the attainable bf16 GEMM rate
+   (a chained ``torch.matmul`` of [16384, 4096] x [4096, 4096]);
+   ``utils/measure.chained_eval_throughput`` at XLS-R 300M + LinearNLL bf16
+   [16, 64600], 24 layers (24 launches a forward, warmup and iterations
+   alike), and ``utils/measure.train_ms_per_step`` on the conf-3 ``Engine``
+   (48 / 24 / 24 launches a step over its 2 k1 + k2 steps, the engine's
+   state digest unchanged), each with its MFU against the H100's published
+   989.4 TFLOP/s and against the measured rate, in (0, 1.05]; a
+   ``DataProbe`` of card tensors dumping what one of their CPU copies
+   dumps; ``al_loop`` over 32 clips scored by that engine's model (24
+   launches a batch of 16), one train step a cycle, two cycles with the
+   second resumed from the cache file, its picks equal to the CPU's loop
+   over the card's log-probs; and ``GANEngine`` (the JAX package's test
+   MLPs) in non-saturating, WGAN and aux mode, 3 steps on the card within
+   1e-5 of the CPU's (fp32, TF32 off), its ``gan_last.ckpt`` loading to
+   identical parameters;
 6. times: CUDA-event times of each kernel at the distillation student's
    shape [22, 8, 199, 96] and at the training shape [22, 16, 199, 64] bf16
    (the forward also at the eval shape [16, 16, 201, 64]
@@ -177,11 +193,13 @@ runs), ``serve_http``, ``eval_from_export``, ``serve_from_export``,
 ``train``, ``train_cli``,
 ``train_cli_device_aug``, ``remat_<policy>_per_step`` and
 ``zoo_<aasist|resnet|btse>_<train_cli|eval|serve|eval_from_export>``,
-``zoo`` (the zoo's total), ``distill``, ``distill_student_eval`` and
-``parallel_<run>`` (``phase_parallel``'s CLI runs, each rank's step under
-dp and tp, the one-process ``--eval`` of (c)); the
+``zoo`` (the zoo's total), ``distill``, ``distill_student_eval``,
+``tools`` (``phase_tools``' total) and ``parallel_<run>``
+(``phase_parallel``'s CLI runs, each rank's step under dp and tp, the
+one-process ``--eval`` of (c)); the
 zoo's utt/s, ms per step and peak memory under the forward's ``zoo``, the
-distillation step's under ``distill``;
+distillation step's under ``distill``, ``phase_tools``' readings (eval
+utt/s, ms per step, MFU, the GEMM rate) under ``tools``;
 the forward's times at bucketed scoring's longest batch [16, 16, 349, 64]
 under ``eval_modes``; times at the training shape [22, 16, 199, 64],
 ``ms`` = ``graph_ms``, with ``eager_ms`` and ``ms_before``, as before
@@ -198,6 +216,7 @@ then the card's name and power limit, and the last line
 import argparse
 import concurrent.futures
 import contextlib
+import copy
 import importlib.util
 import json
 import math
@@ -3242,6 +3261,301 @@ def phase_parallel_eval(K, card, tmp):
     return launches
 
 
+TOOLS = dict(batch=16, samples=64600, warmup=3, iters=10, k1=3, k2=9, lr=1e-5, seed=1234,
+             pool=32, picks=4, cycles=2, gan_steps=3, gan_lr=1e-3, gemm=(16384, 4096, 4096),
+             gemm_iters=300)
+GAN_NETS = {"gan": ([4, 32, 2], [2, 32, 1]), "wgan": ([4, 32, 2], [2, 32, 1]),
+            "aux": ([3, 16, 2], [2, 16, 1])}
+GAN_ATOL = 1e-5  # fp32, TF32 off: the same steps on the CPU, sums in another order
+
+
+def _gan_mlp(sizes, squeeze):
+    """The MLP of the JAX package's GAN tests (``tests/test_gan_al.py``), from
+    the port's ``Linear``; its JAX tree is a list of {w, b}."""
+    from torch import nn
+
+    from scl_deepfake_audio_detection_torch.models.base import Linear
+
+    class MLP(nn.ModuleList):
+        def apply(self, x, train=False, generator=None):
+            for i, layer in enumerate(self):
+                x = layer(x)
+                if i < len(self) - 1:
+                    x = torch.relu(x)
+            return x[..., 0] if squeeze else x
+
+    return MLP([Linear(i, o) for i, o in zip(sizes[:-1], sizes[1:])])
+
+
+def _engine_digest(eng) -> str:
+    """sha256 of the engine's parameters, buffers and AdamW state."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for name, t in eng.model.state_dict().items():
+        h.update(name.encode())
+        h.update(t.detach().float().cpu().numpy().tobytes())
+    opt = eng.optimizer
+    for t in opt.targets:
+        for k, v in sorted(opt.adamw.state.get(t, {}).items()):
+            h.update(k.encode())
+            h.update(torch.as_tensor(v).detach().float().cpu().numpy().tobytes())
+    h.update(str(opt.mini_step).encode())
+    return h.hexdigest()
+
+
+def _mfu_pair(flops, seconds, gemm_rate):
+    from scl_deepfake_audio_detection_torch.utils import flops as FL
+
+    pair = FL.mfu(flops, seconds), FL.mfu(flops, seconds, peak=gemm_rate)
+    if not all(0.0 < x <= 1.05 for x in pair):
+        raise AssertionError(f"MFU reading {pair} outside (0, 1.05]")
+    return pair
+
+
+def phase_tools(K, card, tmp):
+    """The measurement tools and the NII trainers on the card: (e) the
+    attainable bf16 GEMM rate; (a) ``utils/measure.chained_eval_throughput``
+    at XLS-R 300M + LinearNLL bf16 [16, 64600], 24 layers, MFU against the
+    H100's published peak and the measured rate; (f) a ``DataProbe`` of card
+    tensors against one of their CPU copies; (b)
+    ``utils/measure.train_ms_per_step`` on the conf-3 ``Engine`` (remat
+    'attn'), its state digest unchanged; (c) ``al_loop`` over 32 clips,
+    scored by that engine's model through ``score_step``, one train step a
+    cycle, interrupted after a cycle and resumed from its cache, its picks
+    equal to the CPU's over the card's log-probs; (d) ``GANEngine`` in three
+    modes against the CPU, and its checkpoint written and loaded."""
+    from scl_deepfake_audio_detection_torch.models.base import (
+        cast_matmul_params,
+        init_parameters,
+    )
+    from scl_deepfake_audio_detection_torch.models.linear_nll import LinearNLL
+    from scl_deepfake_audio_detection_torch.models.params import to_jax
+    from scl_deepfake_audio_detection_torch.models.xlsr import XLSRConfig
+    from scl_deepfake_audio_detection_torch.train import active_learning as AL
+    from scl_deepfake_audio_detection_torch.train import gan as GAN
+    from scl_deepfake_audio_detection_torch.train.engine import Engine, score_step
+    from scl_deepfake_audio_detection_torch.train.optim import set_learning_rate
+    from scl_deepfake_audio_detection_torch.utils import flops as FL
+    from scl_deepfake_audio_detection_torch.utils import measure
+    from scl_deepfake_audio_detection_torch.utils.config import TrainConfig, load_config
+    from scl_deepfake_audio_detection_torch.utils.probe import DataProbe
+
+    t = TOOLS
+    out = {}
+    layers = XLSRConfig.xlsr_300m().encoder_layers
+    zero = {name: 0 for name in K.KERNELS}
+    total = dict(zero)
+
+    def launched(part, want):
+        got = dict(K.LAUNCHES)
+        print(f"[tools] ({part}) launches {got}, expected {want}")
+        if got != {**zero, **want}:
+            raise AssertionError(f"tools ({part}): launches {got}, expected {want}")
+        for k, v in got.items():
+            total[k] += v
+        return got
+
+    # (e) the attainable bf16 GEMM rate: chained through a one-element feed
+    m, k, n = t["gemm"]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    a = (0.1 * torch.randn(m, k, device="cuda", generator=g)).bfloat16()
+    b = (0.1 * torch.randn(k, n, device="cuda", generator=g)).bfloat16()
+    ev = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def gemms(iters):
+        for _ in range(iters):
+            c = torch.matmul(a, b)
+            a[0, :1] += c[0, :1] * 1e-30
+        return c
+
+    float(gemms(5).float().sum())
+    t0 = time.perf_counter()
+    ev[0].record()
+    c = gemms(t["gemm_iters"])
+    ev[1].record()
+    float(c[0, 0])
+    host_s = time.perf_counter() - t0
+    flop = 2 * m * k * n * t["gemm_iters"]
+    rate, ev_rate = flop / host_s, flop / (ev[0].elapsed_time(ev[1]) / 1e3)
+    print(f"[tools] {card}: chained bf16 torch.matmul [{m}, {k}] x [{k}, {n}] x "
+          f"{t['gemm_iters']}: {rate / 1e12:.2f} TFLOP/s (host readback), "
+          f"{ev_rate / 1e12:.2f} TFLOP/s (CUDA events); published H100 SXM peak "
+          f"{FL.PUBLISHED_H100_BF16_PEAK_FLOPS / 1e12:.1f}, utils/flops constant "
+          f"{FL.MEASURED_ATTAINABLE_H100_BF16_FLOPS / 1e12:.2f}")
+    if not 0 < rate <= 1.05 * FL.PUBLISHED_H100_BF16_PEAK_FLOPS:
+        raise AssertionError(f"GEMM rate {rate:.4g} outside (0, 1.05 peak]")
+    out["gemm"] = {"tflops": rate / 1e12, "events_tflops": ev_rate / 1e12,
+                   "shape": [m, k, n], "iters": t["gemm_iters"]}
+    del a, b, c
+    torch.cuda.empty_cache()
+
+    # (a) chained eval at [16, 64600], all 24 layers
+    cfg = load_config(EVAL_CONFIG)
+    ssl = XLSRConfig.xlsr_300m(compute_dtype="bfloat16")
+    model = LinearNLL.from_config(cfg.model, ssl=ssl, device="cuda", seed=t["seed"])
+    cast_matmul_params(model.eval(), torch.bfloat16)
+    rng = np.random.default_rng(t["seed"])
+    wav = torch.from_numpy((0.1 * rng.standard_normal((t["batch"], t["samples"])))
+                           .astype(np.float32)).cuda()
+    K.reset_launches()
+    ups, ms = measure.chained_eval_throughput(model, wav, t["iters"], t["warmup"])
+    launched("a", {"flash_attn_fwd": layers * (t["warmup"] + t["iters"])})
+    fl = FL.forward_flops(ssl, t["samples"], batch=t["batch"])
+    mfu, mfu_gemm = _mfu_pair(fl, ms / 1e3, rate)
+    print(f"[tools] {card}: (a) chained_eval_throughput XLS-R 300M + LinearNLL bf16 "
+          f"[{t['batch']}, {t['samples']}], {layers} layers, {t['iters']} iters: "
+          f"{ups:.2f} utt/s, {ms:.3f} ms/iter, {fl / 1e12:.4f} TFLOP a forward, MFU "
+          f"{mfu:.4f} of the H100's published 989.4 TFLOP/s, {mfu_gemm:.4f} of the "
+          f"measured GEMM rate")
+    out["eval"] = {"utt_per_s": ups, "ms": ms, "flops": fl, "mfu": mfu,
+                   "mfu_of_gemm_rate": mfu_gemm}
+
+    # (f) a probe of card tensors dumps what a probe of their CPU copies dumps
+    with torch.inference_mode():
+        lp = score_step(model, wav[:4])
+    caps = [("log_probs", lp), ("wav", wav[:2, :1000]),
+            ("bf16", lp.to(torch.bfloat16)), (None, lp[0, 0])]
+    dumps = {}
+    for where in ("cuda", "cpu"):
+        pr = DataProbe()
+        for name, x in caps:
+            pr.add(x if where == "cuda" else x.cpu(), name=name)
+        dumps[where] = pr.dump(os.path.join(tmp, f"probe_{where}"))
+    with np.load(dumps["cuda"]) as zc, np.load(dumps["cpu"]) as zh:
+        if zc.files != zh.files or any(
+                zc[f].dtype != zh[f].dtype or not np.array_equal(zc[f], zh[f])
+                for f in zc.files):
+            raise AssertionError(f"probe dumps differ: {zc.files} vs {zh.files}")
+    print(f"[tools] (f) DataProbe of {len(caps)} card tensors: {zc.files} equal to the "
+          f"CPU copies' dump")
+    del model, wav, lp
+    torch.cuda.empty_cache()
+
+    # (b) differenced train-step timing on the conf-3 Engine
+    c = CONF3
+    tcfg = TrainConfig(seed=c["seed"])
+    tssl = XLSRConfig.xlsr_300m(compute_dtype=tcfg.compute_dtype, remat=tcfg.remat,
+                                remat_policy="attn")
+    eng = Engine(LinearNLL(ssl=tssl, device="cuda", seed=c["seed"]), tcfg)
+    eng.init_state()
+    set_learning_rate(eng.optimizer, t["lr"])
+    batch = conf3_batches(1, c["seed"])[0]
+    eng.train_step(eng.place_batch(batch), eng.step_generator(0, 0))  # AdamW state exists
+    before = _engine_digest(eng)
+    K.reset_launches()
+    step_ms = measure.train_ms_per_step(eng, batch, t["k1"], t["k2"])
+    steps = 2 * t["k1"] + t["k2"]
+    launched("b", {"flash_attn_fwd": 2 * layers * steps, "flash_attn_bwd_dq": layers * steps,
+                   "flash_attn_bwd_dkv": layers * steps})
+    after = _engine_digest(eng)
+    views = c["groups"] * c["views"]
+    tfl = FL.train_step_flops(tssl, c["samples"], views)
+    tmfu, tmfu_gemm = _mfu_pair(tfl, step_ms / 1e3, rate)
+    print(f"[tools] {card}: (b) train_ms_per_step conf-3 [{c['groups']}, {c['views']}, "
+          f"{c['samples']}] bf16 remat 'attn', k = {t['k1']}, {t['k2']}: {step_ms:.3f} "
+          f"ms/step, {tfl / 1e12:.4f} TFLOP a step, MFU {tmfu:.4f} of 989.4 TFLOP/s, "
+          f"{tmfu_gemm:.4f} of the measured GEMM rate; engine digest "
+          f"{'unchanged' if after == before else 'CHANGED'}")
+    if after != before:
+        raise AssertionError("train_ms_per_step changed the engine's state")
+    out["train"] = {"ms": step_ms, "flops": tfl, "mfu": tmfu, "mfu_of_gemm_rate": tmfu_gemm,
+                    "steps_run": steps}
+
+    # (c) active learning: the pool scored by the engine's model, one step a cycle
+    pool_wav = (0.1 * rng.standard_normal((t["pool"], t["samples"]))
+                * np.linspace(0.3, 1.5, t["pool"])[:, None]).astype(np.float32)
+    pool_labels = np.arange(t["pool"]) % 2
+    card_scores = []
+
+    def score_pool(idx):
+        rows = [score_step(eng.model, pool_wav[idx[i:i + t["batch"]]]).float().cpu().numpy()
+                for i in range(0, len(idx), t["batch"])]
+        card_scores.append((list(idx), np.concatenate(rows)))
+        return card_scores[-1][1]
+
+    def train_cycle(idx, n_epochs):  # idx: this cycle's picks (use_new_data_only)
+        picked = sorted(idx)
+        b = {"wav": pool_wav[picked][None, :, :c["samples"]],
+             "labels": pool_labels[picked][None].astype(np.float32)}
+        eng.train_step(eng.place_batch(b), eng.step_generator(100 + len(card_scores), 0))
+
+    cache = os.path.join(tmp, "al_cache.json")
+    al_kw = dict(samples_per_cycle=t["picks"], criterion="entropy", seed=t["seed"],
+                 use_new_data_only=True, cache_path=cache)
+    K.reset_launches()
+    AL.al_loop(AL.ALConfig(cycles=1, **al_kw), [], list(range(t["pool"])), train_cycle,
+               score_pool)
+    state = AL.al_loop(AL.ALConfig(cycles=t["cycles"], **al_kw), [],
+                       list(range(t["pool"])), train_cycle, score_pool)
+    forwards = sum(math.ceil(len(i) / t["batch"]) for i, _ in card_scores)
+    launched("c", {"flash_attn_fwd": layers * forwards + 2 * layers * t["cycles"],
+                   "flash_attn_bwd_dq": layers * t["cycles"],
+                   "flash_attn_bwd_dkv": layers * t["cycles"]})
+    replay = iter(card_scores)
+
+    def cpu_scores(idx):
+        want_idx, lp = next(replay)
+        if list(idx) != want_idx:
+            raise AssertionError(f"active learning scored {idx}, the card {want_idx}")
+        return lp
+
+    cpu = AL.al_loop(AL.ALConfig(cycles=t["cycles"], **{**al_kw, "cache_path": None}), [],
+                     list(range(t["pool"])), lambda i, n: None, cpu_scores)
+    print(f"[tools] (c) al_loop {t['cycles']} cycles (the second resumed from the cache) "
+          f"over {t['pool']} clips: picks {state.history}, on the CPU over the card's "
+          f"log-probs {cpu.history}; {forwards} scoring forwards")
+    if state.history != cpu.history or len(state.history) != t["cycles"]:
+        raise AssertionError("active-learning selections differ from the CPU's")
+    out["al"] = {"history": state.history, "forwards": forwards}
+    del eng
+    torch.cuda.empty_cache()
+
+    # (d) GAN on the card against the CPU, fp32 with TF32 off
+    worst = 0.0
+    for mode, (sg, sd) in GAN_NETS.items():
+        kw = {"gan": {}, "wgan": {"mode": "wgan"}, "aux": {"aux_loss_fn": GAN.mse_aux}}[mode]
+        gen0, disc0 = _gan_mlp(sg, False), _gan_mlp(sd, True)
+        init_parameters(gen0, torch.Generator().manual_seed(1))
+        init_parameters(disc0, torch.Generator().manual_seed(2))
+        grng = np.random.default_rng(3)
+        batches = []
+        for _ in range(t["gan_steps"]):
+            z = grng.standard_normal((16, sg[0])).astype(np.float32)
+            batches.append({"z": z, "real": (grng.standard_normal((16, 2)) + z[:, :2])
+                            .astype(np.float32)})
+        engs = {}
+        for where in ("cuda", "cpu"):
+            gen, disc = copy.deepcopy(gen0).to(where), copy.deepcopy(disc0).to(where)
+            engs[where] = GAN.GANEngine(gen, disc, sg[0], lr_g=t["gan_lr"], lr_d=t["gan_lr"],
+                                        **kw)
+            engs[where].fit(lambda: batches, 1,
+                            save_dir=os.path.join(tmp, f"gan_{mode}_{where}"))
+        diff = max(_tree_diff(to_jax(getattr(engs["cuda"], net)),
+                              to_jax(getattr(engs["cpu"], net))) for net in ("gen", "disc"))
+        back = GAN.GANEngine(_gan_mlp(sg, False).cuda(), _gan_mlp(sd, True).cuda(), sg[0], **kw)
+        extra = back.load(os.path.join(tmp, f"gan_{mode}_cuda", "gan_last.ckpt"))
+        same = all(torch.equal(p, q) for p, q in zip(
+            list(back.gen.parameters()) + list(back.disc.parameters()),
+            list(engs["cuda"].gen.parameters()) + list(engs["cuda"].disc.parameters())))
+        print(f"[tools] (d) GANEngine '{mode}' {t['gan_steps']} steps on the card vs the "
+              f"CPU: max |d param| {diff:.3e} (tol {GAN_ATOL:.0e}); checkpoint (epoch "
+              f"{extra.get('epoch')}) loads {'identical' if same else 'DIFFERENT'}")
+        if diff > GAN_ATOL or not same:
+            raise AssertionError(f"GAN '{mode}' disagrees with the CPU or its checkpoint")
+        worst = max(worst, diff)
+    out["gan_max_abs_err"] = worst
+    return total, out
+
+
+def _tree_diff(a, b) -> float:
+    """max |a - b| over two trees of the same structure."""
+    from scl_deepfake_audio_detection_torch.utils.tree import keyed_leaves
+
+    return max(float(np.abs(np.asarray(x, np.float64) - np.asarray(y, np.float64)).max())
+               for (_, x), (_, y) in zip(keyed_leaves(a), keyed_leaves(b)))
+
+
 def _bound(nbytes, flops):
     bytes_ms, flops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS_PER_S * 1e3
     return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations", \
@@ -3427,6 +3741,10 @@ def main() -> int:
         distill_launches, distill_stats = phase_distill(K, card, tmp)
     lap("distill")
     torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        tools_launches, tools_stats = phase_tools(K, card, tmp)
+    lap("tools")
+    torch.cuda.empty_cache()
     train_times = phase_backward_times(K, A, card, KB, TRAIN_SHAPE)
     student_times = phase_backward_times(K, A, card, KB, STUDENT_SHAPE)
     tp_times = phase_backward_times(K, A, card, KB, TP_SHAPE)
@@ -3437,7 +3755,8 @@ def main() -> int:
           f"training main path {launches}, through the training CLI {cli_launches}, with "
           f"--device_aug {aug_launches}; remat per step "
           f"{ {k: v['launches'] for k, v in remat.items()} }; the model zoo {zoo}; "
-          f"distillation {distill_launches}; the parallel path {par_launches}")
+          f"distillation {distill_launches}; the parallel path {par_launches}; the "
+          f"measurement tools and active learning {tools_launches}")
     # Each entry's launches belong to this slice's main path, the training CLI
     # under --mesh 1,1 --zero1 (phase_parallel (a)); its times to XLS-R 300M's
     # training shape, as in the entries of the slices before, so that they
@@ -3468,7 +3787,8 @@ def main() -> int:
                                  **{f"zoo_{k}": v[name] for k, v in zoo_launches.items()},
                                  "zoo": zoo[name],
                                  **{k: v[name] for k, v in distill_launches.items()},
-                                 **{f"parallel_{k}": v[name] for k, v in par_launches.items()}},
+                                 **{f"parallel_{k}": v[name] for k, v in par_launches.items()},
+                                 "tools": tools_launches[name]},
             **train_times[name],
             "student_shape": student_times[name],
             "tp_shape": tp_times[name],
@@ -3476,6 +3796,7 @@ def main() -> int:
         if name == "flash_attn_fwd":
             entry["zoo"] = zoo_stats
             entry["distill"] = distill_stats
+            entry["tools"] = {"card": card, "launches": tools_launches[name], **tools_stats}
             entry["eval"] = {"launches": eval_launches[name], **eval_fwd}
             entry["eval_modes"] = {"launches": modes_launches[name], **modes_fwd}
             entry["serve"] = {"launches": serve_launches["serve"][name],

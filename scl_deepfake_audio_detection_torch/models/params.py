@@ -164,7 +164,13 @@ def load_jax_params(model: nn.Module, tree, buffers=None) -> nn.Module:
 
 def _host_or_device(t: torch.Tensor, host: bool):
     t = t.detach()
-    return np.ascontiguousarray(t.float().cpu().numpy()) if host else t
+    if not host:
+        return t
+    # a CPU tensor's numpy view shares its memory: the copy keeps the tree
+    # as it is now when the parameter moves on (a checkpoint written on a
+    # thread while training goes on)
+    arr = t.float().cpu().numpy()
+    return np.array(arr, order="C") if t.device.type == "cpu" else np.ascontiguousarray(arr)
 
 
 def to_jax(model: nn.Module, host: bool = True):

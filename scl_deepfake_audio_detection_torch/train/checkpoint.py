@@ -58,9 +58,12 @@ _META_KEY = "__scl_meta__"
 
 
 def _host(x) -> np.ndarray:
+    """A host array of ``x`` that does not share a CPU tensor's memory, so
+    that an ``AsyncWriter`` writes the state of the call."""
     if isinstance(x, torch.Tensor):
         x = x.detach()
-        return (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
+        arr = (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
+        return arr.copy() if x.device.type == "cpu" else arr
     return np.asarray(x)
 
 

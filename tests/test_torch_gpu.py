@@ -708,3 +708,40 @@ def test_tensor_parallel_layer_at_8_heads_a_rank_matches_the_full_layer(tmp_path
                                    "flash_attn_bwd_dkv": 1}, got["launches"]
         for a, w in ((got["y"], want_y), (got["dx"], want_dx)):
             assert float((a - w).abs().max()) <= 2.0 ** -5 * float(w.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["gan", "wgan", "aux"])
+def test_gan_steps_on_the_card_match_the_cpu(mode, tmp_path):
+    """``train/gan.GANEngine`` with the JAX package's test MLPs: 3 steps on the
+    card within 1e-5 of the same steps on the CPU (fp32, TF32 off), and the
+    card's ``gan_last.ckpt`` loads into fresh nets on the card unchanged."""
+    _need_card()
+    import copy
+
+    import torch_parallel_ranks as R
+    from scl_deepfake_audio_detection_torch.models.base import init_parameters
+    from scl_deepfake_audio_detection_torch.models.params import to_jax
+    from scl_deepfake_audio_detection_torch.train import gan as GAN
+    from scl_deepfake_audio_detection_torch.utils.tree import flatten
+
+    kw = {"gan": {}, "wgan": {"mode": "wgan", "n_critic": 3},
+          "aux": {"aux_loss_fn": GAN.mse_aux}}[mode]
+    sg, sd = R.GAN_SIZES
+    gen0, disc0 = R.MLP(sg), R.MLP(sd, True)
+    init_parameters(gen0, torch.Generator().manual_seed(1))
+    init_parameters(disc0, torch.Generator().manual_seed(2))
+    engs = {}
+    for dev in ("cuda", "cpu"):
+        engs[dev] = GAN.GANEngine(copy.deepcopy(gen0).to(dev), copy.deepcopy(disc0).to(dev),
+                                  sg[0], lr_g=1e-3, lr_d=1e-3, **kw)
+        engs[dev].fit(R.gan_batches, 1, save_dir=str(tmp_path / dev))
+    for net in ("gen", "disc"):
+        got = flatten(to_jax(getattr(engs["cuda"], net)))
+        want = flatten(to_jax(getattr(engs["cpu"], net)))
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-5, err_msg=k)
+    back = GAN.GANEngine(R.MLP(sg).cuda(), R.MLP(sd, True).cuda(), sg[0], **kw)
+    assert back.load(str(tmp_path / "cuda" / "gan_last.ckpt")) == {"epoch": 0}
+    for a, b in zip(back.gen.state_dict().values(), engs["cuda"].gen.state_dict().values()):
+        assert torch.equal(a, b)

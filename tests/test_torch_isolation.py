@@ -82,6 +82,31 @@ def test_the_sweep_holds_the_distillation_and_codec_modules():
         assert f"{port.__name__}.{m}" in mods, m
 
 
+TOOL_MODULES = ("utils.flops", "utils.measure", "utils.probe", "data.generic_io",
+                "utils.stats", "utils.filelists", "utils.text", "utils.warehouse",
+                "train.schedulers", "train.monitor", "train.logs",
+                "train.active_learning", "train.gan")
+
+
+def test_the_sweep_holds_the_tool_modules():
+    """The measurement tools and the NII trainers and host tools are in the
+    sweep, and importing them alone leaves JAX out."""
+    mods = set(_port_modules())
+    names = [f"{port.__name__}.{m}" for m in TOOL_MODULES]
+    assert len(names) == 13 and set(names) <= mods, sorted(set(names) - mods)
+    code = (
+        "import importlib, sys\n"
+        f"for m in {names!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
+        "print('BAD', bad)\n"
+        "raise SystemExit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_importing_the_kernels_module_builds_nothing():
     code = (
         "from scl_deepfake_audio_detection_torch.ops import _kernels as K\n"
@@ -107,7 +132,8 @@ def _imported_roots(path):
 
 
 @pytest.mark.parametrize("rel", ["chip_smoke.py", "scripts/profile_torch_eval.py",
-                                 "scripts/profile_torch_train.py"] + sorted(
+                                 "scripts/profile_torch_train.py",
+                                 "scripts/compare_torch_measure.py"] + sorted(
     os.path.relpath(os.path.join(d, f), REPO)
     for d, _, fs in os.walk(os.path.join(REPO, "scl_deepfake_audio_detection_torch"))
     for f in fs if f.endswith(".py")))

@@ -103,6 +103,21 @@ def _last(out):
     return os.path.join(out, run), pckpt.load(os.path.join(out, run, "last.ckpt"))[0]
 
 
+def _beside_ranks(args, work):
+    """``R.cli_rank(*args)`` on two spawned ranks while ``work()`` runs in
+    this process (the ranks' processes take their own cores); both must
+    succeed."""
+    import concurrent.futures
+
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        ranks = pool.submit(M.launch, R.cli_rank, 2, args=args, threads=1, timeout=240)
+        try:
+            work()
+        finally:
+            codes = ranks.result()
+    assert codes == [0, 0]
+
+
 def _rows(path):
     with open(path) as f:
         return sorted(ln.split() for ln in f if ln.strip())
@@ -122,9 +137,6 @@ def test_mesh_training_matches_the_jax_cli(mini_db, tmp_path, monkeypatch):
     argv = _train_argv(mini_db, port_out) + ["--device", "cpu", "--mesh", "2,1",
                                              "--model_path", init]
     os.makedirs(tmp_path / "logs")
-    assert M.launch(R.cli_rank, 2, args=(argv, str(tmp_path / "logs"), 0.0), threads=1,
-                    timeout=240) == [0, 0]
-
     devices = jax.devices()
     build = JLinearNLL.from_config.__func__
 
@@ -133,12 +145,15 @@ def test_mesh_training_matches_the_jax_cli(mini_db, tmp_path, monkeypatch):
 
         return dataclasses.replace(build(cls, model_cfg, ssl=ssl), dropout=0.0)
 
-    monkeypatch.setattr(jax, "devices", lambda *a: devices[:2])
-    monkeypatch.setattr(JLinearNLL, "from_config", classmethod(no_dropout))
-    with contextlib.redirect_stdout(io.StringIO()):
-        assert jax_main(_train_argv(mini_db, jax_out) + ["--mesh", "2,1", "--model_path",
-                                                         init]) == 0
-    monkeypatch.undo()
+    def jax_cli():
+        monkeypatch.setattr(jax, "devices", lambda *a: devices[:2])
+        monkeypatch.setattr(JLinearNLL, "from_config", classmethod(no_dropout))
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert jax_main(_train_argv(mini_db, jax_out) + ["--mesh", "2,1", "--model_path",
+                                                             init]) == 0
+        monkeypatch.undo()
+
+    _beside_ranks((argv, str(tmp_path / "logs"), 0.0), jax_cli)
     _, got = _last(str(port_out))
     _, want = _last(str(jax_out))
     gp, wp = flatten(got["params"]), flatten(want["params"])
@@ -217,14 +232,16 @@ def test_multihost_ranks_train_alike_and_rank0_writes(mini_db, tmp_path):
 def test_multihost_eval_writes_a_part_per_rank(mini_db, tmp_path):
     root, _, utts = mini_db
     whole = tmp_path / "whole.txt"
-    with contextlib.redirect_stdout(io.StringIO()):
-        assert port_main(_eval_argv(mini_db, whole)) == 0
     cache = tmp_path / "cache"
     argv = _eval_argv(mini_db, tmp_path / "scores.txt") + ["--multihost", "--decode_cache",
                                                            str(cache)]
     os.makedirs(tmp_path / "logs")
-    assert M.launch(R.cli_rank, 2, args=(argv, str(tmp_path / "logs")), threads=1,
-                    timeout=240) == [0, 0]
+
+    def one_process():
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert port_main(_eval_argv(mini_db, whole)) == 0
+
+    _beside_ranks((argv, str(tmp_path / "logs")), one_process)
     parts = [_rows(tmp_path / f"scores.txt.part{r}") for r in range(2)]
     assert [len(p) for p in parts] == [3, 3]
     assert sorted(r[0] for r in parts[0]) == sorted(utts[0::2])

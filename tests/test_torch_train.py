@@ -457,6 +457,45 @@ def test_to_jax_inverts_from_jax(golden_tree):
     assert all(torch.equal(sd[k], v) for k, v in model.state_dict().items())
 
 
+def test_async_train_state_holds_the_state_of_its_call(tmp_path, monkeypatch):
+    """On the CPU a tensor's numpy view shares its memory: a train state
+    handed to an ``AsyncWriter`` must be copied at the call, or a step taken
+    before the thread writes (``fit``'s next epoch) leaks into the file.
+    The write is held back here until after such a step."""
+    import threading
+
+    from scl_deepfake_audio_detection_torch.models.params import buffers_to_jax
+
+    model = LinearNLL(ssl=PX.XLSRConfig.tiny(), emb_dim=16, device="cpu")
+    eng = PE.Engine(model, TrainConfig())
+    eng.init_state()
+    set_learning_rate(eng.optimizer, 1e-2)
+    batch = eng.place_batch(_golden_batch(4000))
+    eng.train_step(batch, eng.step_generator(0, 0))  # AdamW moments exist
+    want = flatten({"params": to_jax(model), "buffers": buffers_to_jax(model),
+                    "opt": pckpt.pack_opt_leaves(model, eng.optimizer)})
+    want = {k: np.array(v, copy=True) for k, v in want.items()}
+    gate, write = threading.Event(), pckpt._write_flat
+
+    def held(path, flat, extra):
+        assert gate.wait(60)
+        write(path, flat, extra)
+
+    monkeypatch.setattr(pckpt, "_write_flat", held)
+    writer = pckpt.AsyncWriter()
+    path = str(tmp_path / "last.ckpt")
+    pckpt.save_train_state(path, model, eng.optimizer, 0, 0, 50.0, writer=writer)
+    eng.train_step(batch, eng.step_generator(0, 1))  # moves parameters and moments in place
+    gate.set()
+    writer.wait()
+    tree, _ = pckpt.load(path)
+    got = flatten({"params": tree["params"], "buffers": tree.get("buffers", {}),
+                   "opt": tree["opt_state_leaves"]})
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
 def test_checkpoint_save_load_round_trip(tmp_path):
     tree = {"a": {"w": np.arange(6, dtype=np.float32).reshape(2, 3)},
             "l": [np.ones(2, np.float32), torch.zeros(3, dtype=torch.bfloat16)]}

@@ -104,8 +104,56 @@ def two_ranks(out_dir, tree, aasist):
     res["score"] = eng.score_step(wav).clone()
     res["score_ragged"] = eng.score_step(wav[:5]).clone()
     res["aasist"] = _grads_aasist(*aasist)
+    res["gan"] = gan_run((2, 1))
     torch.save(res, os.path.join(out_dir, f"rank{M.rank()}.pt"))
     return 0
+
+
+class MLP(torch.nn.ModuleList):
+    """The JAX package's GAN test MLP (``tests/test_gan_al.py``) from the
+    port's ``Linear``; its JAX tree is a list of {w, b}."""
+
+    def __init__(self, sizes, out_squeeze=False):
+        from scl_deepfake_audio_detection_torch.models.base import Linear
+
+        super().__init__([Linear(i, o) for i, o in zip(sizes[:-1], sizes[1:])])
+        self.out_squeeze = out_squeeze
+
+    def apply(self, x, train=False, generator=None):
+        for i, layer in enumerate(self):
+            x = layer(x)
+            if i < len(self) - 1:
+                x = torch.relu(x)
+        return x[..., 0] if self.out_squeeze else x
+
+
+GAN_SIZES = ([3, 8, 2], [2, 8, 1])
+
+
+def gan_batches(n=3, rows=16, seed=0):
+    rng = np.random.default_rng(seed)
+    return [{"z": rng.standard_normal((rows, GAN_SIZES[0][0])).astype(np.float32),
+             "real": rng.standard_normal((rows, 2)).astype(np.float32) + 1.0}
+            for _ in range(n)]
+
+
+def gan_run(mesh_shape=None, device="cpu"):
+    """Three non-saturating steps of seeded MLPs on ``gan_batches``; over a
+    mesh of ``mesh_shape`` when given.  -> (initial trees, final trees,
+    metrics)."""
+    from scl_deepfake_audio_detection_torch.models.base import init_parameters
+    from scl_deepfake_audio_detection_torch.models.params import to_jax
+    from scl_deepfake_audio_detection_torch.train.gan import GANEngine
+
+    gen, disc = MLP(GAN_SIZES[0]), MLP(GAN_SIZES[1], True)
+    init_parameters(gen, torch.Generator().manual_seed(11))
+    init_parameters(disc, torch.Generator().manual_seed(12))
+    gen, disc = gen.to(device), disc.to(device)
+    init = [to_jax(gen), to_jax(disc)]
+    mesh = None if mesh_shape is None else M.make_mesh(mesh_shape, "cpu")
+    eng = GANEngine(gen, disc, GAN_SIZES[0][0], lr_g=1e-2, lr_d=5e-3, mesh=mesh)
+    metrics = eng.run_epoch(gan_batches(), 0)
+    return init, [to_jax(gen), to_jax(disc)], metrics
 
 
 def distill_run(mesh=None):
