@@ -164,7 +164,20 @@ Phases, each of which fails the script with a non-zero exit:
    over the card's log-probs; and ``GANEngine`` (the JAX package's test
    MLPs) in non-saturating, WGAN and aux mode, 3 steps on the card within
    1e-5 of the CPU's (fp32, TF32 off), its ``gan_last.ckpt`` loading to
-   identical parameters;
+   identical parameters.  Then Slice G3 (``phase_g3``, after the tools),
+   each part against the same module on the CPU on the same weights and
+   inputs (fp32, TF32 off), launching none of the three kernels: the
+   conformer (``models/conformer``, the JAX ``ConformerConfig`` defaults at
+   dim 1024, depth 2) over XLS-R 300M's scoring frames [16, 201, 1024], a
+   training forward and backward (output, moved batch-norm statistics,
+   parameter and input gradients) and an eval forward, with the forward's
+   and the backward's ms; VITS's coupling block (four mean-only
+   ``ResidualCoupling(192, 192, 5, 4 layers)`` with flips) and its duration
+   predictor's ``ConvFlow(2, 192, 3, 3 layers, 10 bins, tail 5.0)``
+   conditioned on [16, 201, 192], ragged masks: outputs, log-dets and
+   gradients, the reverse undoing the forward, forward + reverse ms; and
+   ``dsp/spectral.melspec`` on [16, 64600]; its figures on ``[g3]`` lines
+   and as ``[g3-json]``;
 6. times: CUDA-event times of each kernel at the distillation student's
    shape [22, 8, 199, 96] and at the training shape [22, 16, 199, 64] bf16
    (the forward also at the eval shape [16, 16, 201, 64]
@@ -194,7 +207,8 @@ runs), ``serve_http``, ``eval_from_export``, ``serve_from_export``,
 ``train_cli_device_aug``, ``remat_<policy>_per_step`` and
 ``zoo_<aasist|resnet|btse>_<train_cli|eval|serve|eval_from_export>``,
 ``zoo`` (the zoo's total), ``distill``, ``distill_student_eval``,
-``tools`` (``phase_tools``' total) and ``parallel_<run>``
+``tools`` (``phase_tools``' total), ``g3`` (``phase_g3``'s, 0) and
+``parallel_<run>``
 (``phase_parallel``'s CLI runs, each rank's step under dp and tp, the
 one-process ``--eval`` of (c)); the
 zoo's utt/s, ms per step and peak memory under the forward's ``zoo``, the
@@ -208,7 +222,8 @@ distillation was ported, at the student's shape [22, 8, 199, 96] under
 ``tp_shape``; the forward's eval-shape times under
 ``eval``, the artifact's under ``export``; before it the per-conv table
 as ``[conv-json]``, the reference checkpoint's as ``[refckpt-json]`` and
-``phase_parallel``'s times and memory as ``[parallel-json]``),
+``phase_parallel``'s times and memory as ``[parallel-json]`` and
+``phase_g3``'s figures as ``[g3-json]``),
 then the card's name and power limit, and the last line
 ``{"ok": true, "device": {...}}``.  It imports nothing of JAX.
 """
@@ -3548,6 +3563,247 @@ def phase_tools(K, card, tmp):
     return total, out
 
 
+# phase_g3's tolerances, fp32 with TF32 off on both sides (the same
+# operations summed in another order, by cuBLAS / cuDNN / cuFFT and by the
+# CPU's libraries): outputs and log-dets within G3_ATOL of their largest
+# entry, the batch-norm statistics likewise, gradients within G3_GRAD of each
+# leaf's largest (a leaf that is zero up to rounding, such as the key bias
+# ahead of the softmax or the depthwise bias ahead of a training batch norm,
+# to G3_GRAD of the model's largest); a flow's reverse of its forward within
+# G3_INVERT of the input's largest; the log-mel within G3_LOGMEL (natural
+# log: a relative error of the mel power) and the power within G3_ATOL.
+G3_ATOL, G3_GRAD, G3_INVERT, G3_LOGMEL = 1e-4, 1e-3, 1e-4, 1e-3
+# the conformer at XLS-R 300M's width over its scoring frames [16, 201, 1024]
+# (the JAX ConformerConfig defaults at dim 1024); VITS's coupling block and
+# its duration predictor's ConvFlow (jaywalnut310/vits models.py:
+# ResidualCouplingBlock(192, 192, 5, 1, 4), four mean-only couplings, each
+# followed by a flip; StochasticDurationPredictor's ConvFlow(2, 192, 3,
+# n_layers=3), 10 bins, tail bound 5.0, conditioned on [16, 201, 192])
+G3 = {"frames": (16, 201, 1024), "depth": 2, "flow": (16, 201, 192), "flows": 4,
+      "wav": (16, 64600)}
+
+
+def _g3_scale(a, b) -> float:
+    """max |a - b| over the largest |b| (1 for an all-zero b)."""
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def _g3_check(what, got, want, tol):
+    err = _g3_scale(got, want)
+    if not err <= tol:
+        raise AssertionError(f"[g3] {what}: card vs CPU {err:.3e} of the largest > {tol:.0e}")
+    return err
+
+
+def _g3_grads(what, got, want):
+    """Per-leaf gradient check of the card's {name: grad} against the CPU's."""
+    top = max(float(g.abs().max()) for g in want.values())
+    worst = 0.0
+    for n, w in want.items():
+        scale = max(float(w.abs().max()), G3_GRAD * top)
+        err = float((got[n].float().cpu() - w.float()).abs().max()) / scale
+        if not err <= G3_GRAD:
+            raise AssertionError(f"[g3] {what} gradient {n}: {err:.3e} of its largest > "
+                                 f"{G3_GRAD:.0e}")
+        worst = max(worst, err)
+    return worst
+
+
+def _g3_run(model, fn, inputs, ct_seed):
+    """``fn(model, *inputs)`` -> a tuple of tensors; the parameter and input
+    gradients of a seeded weighting of their sum (one weight tensor per
+    output).  Returns (outputs, {name: grad})."""
+    inputs = [t.detach().clone().requires_grad_(True) for t in inputs]
+    outs = fn(model, *inputs)
+    gen = torch.Generator().manual_seed(ct_seed)
+    loss = sum((o.float() * torch.randn(o.shape, generator=gen).to(o.device)).sum()
+               for o in outs)
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    grads.update({f"input{i}": t.grad for i, t in enumerate(inputs)})
+    return [o.detach() for o in outs], grads
+
+
+def _vits_block(nn, PF):
+    """VITS's ResidualCouplingBlock: four mean-only couplings, each followed
+    by a flip of the channels; forward returns (y, summed log-det)."""
+
+    class CouplingBlock(nn.Module):
+        def __init__(self):
+            super().__init__()
+            c = G3["flow"][2]
+            self.flows = nn.ModuleList(PF.ResidualCoupling(c, c, 5, 4, mean_only=True,
+                                                           dilation_rate=1)
+                                       for _ in range(G3["flows"]))
+
+        def forward(self, x, mask, reverse=False):
+            if reverse:
+                for f in reversed(self.flows):
+                    x = f(PF.flip_flow(x, reverse=True), mask, reverse=True)
+                return x
+            logdet = 0.0
+            for f in self.flows:
+                x, ld = f(x, mask)
+                x, _ = PF.flip_flow(x)
+                logdet = logdet + ld
+            return x, logdet
+
+    return CouplingBlock()
+
+
+def phase_g3(K, card):
+    """Slice G3 on the card, each part against the same module on the CPU on
+    the same weights and inputs (fp32, TF32 off): (a) the conformer at dim
+    1024 over [16, 201, 1024], a training forward and backward (outputs,
+    moved batch-norm statistics, parameter and input gradients) and an eval
+    forward, with the forward's and the backward's ms; (b) VITS's coupling
+    block and its duration predictor's ConvFlow over [16, 201, 192] with a
+    ragged mask: forward (outputs, log-dets, gradients) and reverse, which
+    must undo the forward; (c) ``dsp/spectral.melspec`` on [16, 64600].  It
+    launches none of the three kernels."""
+    import copy
+
+    from torch import nn
+
+    from scl_deepfake_audio_detection_torch.dsp import spectral as SP
+    from scl_deepfake_audio_detection_torch.models.base import init_parameters
+    from scl_deepfake_audio_detection_torch.models.conformer import Conformer, ConformerConfig
+    from scl_deepfake_audio_detection_torch.ops import flows as PF
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out = {"card": card}
+    b, t, d = G3["frames"]
+
+    # (a) the conformer
+    cfg = ConformerConfig(dim=d, depth=G3["depth"])
+    cpu_model = init_parameters(Conformer(cfg), torch.Generator().manual_seed(31))
+    card_model = copy.deepcopy(cpu_model).cuda()
+    x = torch.randn(b, t, d, generator=torch.Generator().manual_seed(32))
+    fwd = lambda m, xx: (m(xx, train=True),)  # noqa: E731
+    (y_c,), g_c = _g3_run(card_model, fwd, [x.cuda()], 33)
+    (y_p,), g_p = _g3_run(cpu_model, fwd, [x], 33)
+    errs = {"conformer_train_out": _g3_check("conformer training output", y_c, y_p, G3_ATOL)}
+    errs["conformer_bn"] = max(
+        _g3_check(f"conformer {n}", bc, bp, G3_ATOL)
+        for (n, bc), (_, bp) in zip(card_model.named_buffers(), cpu_model.named_buffers()))
+    moved = float(next(card_model.buffers()).abs().max())
+    if not moved > 0.0:
+        raise AssertionError("[g3] the training forward did not move the batch-norm mean")
+    errs["conformer_grad"] = _g3_grads("conformer", g_c, g_p)
+    with torch.no_grad():  # eval rows are independent: the CPU scores four of them
+        errs["conformer_eval_out"] = _g3_check(
+            "conformer eval output", card_model(x.cuda())[:4], cpu_model(x[:4]), G3_ATOL)
+    xc = x.cuda()
+    with torch.no_grad():
+        out["conformer_eval_fwd_ms"] = cuda_ms(lambda: card_model(xc), iters=10, warmup=2)
+    xr = xc.clone().requires_grad_(True)
+    out["conformer_train_fwd_ms"] = cuda_ms(lambda: card_model(xr, train=True), iters=10,
+                                            warmup=2)
+    yr = card_model(xr, train=True)
+    ones = torch.ones_like(yr)
+
+    def step():
+        card_model.zero_grad(set_to_none=True)
+        card_model(xr, train=True).backward(ones)
+
+    out["conformer_train_fwd_bwd_ms"] = cuda_ms(step, iters=10, warmup=2)
+    out["conformer_train_bwd_ms"] = out["conformer_train_fwd_bwd_ms"] - out["conformer_train_fwd_ms"]
+    del yr, ones, card_model, cpu_model, g_c, g_p
+    torch.cuda.empty_cache()
+    print(f"[g3] (a) conformer dim {d}, depth {cfg.depth}, {cfg.heads} heads x "
+          f"{cfg.dim_head}, kernel {cfg.conv_kernel} on [{b}, {t}, {d}] fp32: training "
+          f"output {errs['conformer_train_out']:.3e}, batch-norm statistics "
+          f"{errs['conformer_bn']:.3e}, eval output {errs['conformer_eval_out']:.3e} of "
+          f"their largest (tol {G3_ATOL:.0e}), gradients {errs['conformer_grad']:.3e} of each "
+          f"leaf's largest (tol {G3_GRAD:.0e}); training forward "
+          f"{out['conformer_train_fwd_ms']:.3f} ms, backward {out['conformer_train_bwd_ms']:.3f} "
+          f"ms, eval forward {out['conformer_eval_fwd_ms']:.3f} ms")
+
+    # (b) the flows, VITS's widths, a ragged mask
+    fb, ft, fc = G3["flow"]
+    gen = torch.Generator().manual_seed(34)
+    lengths = torch.randint(ft // 2, ft + 1, (fb,), generator=gen)
+    lengths[0] = ft
+    mask = (torch.arange(ft)[None, :] < lengths[:, None]).float()[..., None]
+    block = init_parameters(_vits_block(nn, PF), gen)
+    sdp = init_parameters(PF.ConvFlow(2, fc, 3, 3, num_bins=10, tail_bound=5.0), gen)
+    with torch.no_grad():  # seeded projections: zero ones make the couplings the identity
+        for f in block.flows:
+            f.post.weight.normal_(0.0, 0.02, generator=gen)
+        sdp.proj.weight.normal_(0.0, 0.02, generator=gen)
+    z = torch.randn(fb, ft, fc, generator=gen)
+    w = 2.0 * torch.randn(fb, ft, 2, generator=gen)
+    h = torch.randn(fb, ft, fc, generator=gen)
+    cases = {"coupling_block": (block, lambda m, zz: m(zz, mask.to(zz.device)), [z]),
+             "conv_flow": (sdp, lambda m, ww, hh: m(ww, mask.to(ww.device), g=hh), [w, h])}
+    for name, (module, fn, inputs) in cases.items():
+        card_m = copy.deepcopy(module).cuda()
+        outs_c, g_c = _g3_run(card_m, fn, [i.cuda() for i in inputs], 35)
+        outs_p, g_p = _g3_run(module, fn, inputs, 35)
+        errs[f"{name}_out"] = _g3_check(f"{name} output", outs_c[0], outs_p[0], G3_ATOL)
+        errs[f"{name}_logdet"] = _g3_check(f"{name} log-det", outs_c[1], outs_p[1], G3_ATOL)
+        errs[f"{name}_grad"] = _g3_grads(name, g_c, g_p)
+        mc = mask.cuda()
+        with torch.no_grad():
+            if name == "coupling_block":
+                # the valid frames (a coupling zeroes the masked frames of
+                # the half it writes, and the flips bring every channel there)
+                z_c = z.cuda()
+                back = card_m(outs_c[0], mc, reverse=True) * mc
+                want = z_c * mc
+                fwd_rev = lambda: card_m(card_m(z_c, mc)[0], mc, reverse=True)  # noqa: E731
+            else:
+                w_c, h_c = w.cuda(), h.cuda()
+                back = card_m(outs_c[0], mc, g=h_c, reverse=True)
+                want = w_c * mc
+                fwd_rev = lambda: card_m(card_m(w_c, mc, g=h_c)[0], mc, g=h_c,  # noqa: E731
+                                         reverse=True)
+            errs[f"{name}_invert"] = _g3_check(f"{name} reverse of forward", back, want,
+                                               G3_INVERT)
+            out[f"{name}_fwd_rev_ms"] = cuda_ms(fwd_rev, iters=10, warmup=2)
+        del card_m
+    print(f"[g3] (b) VITS coupling block ({G3['flows']} x ResidualCoupling({fc}, {fc}, 5, "
+          f"4 layers, mean-only) + flip) on [{fb}, {ft}, {fc}], lengths {lengths.tolist()}: output "
+          f"{errs['coupling_block_out']:.3e}, log-det {errs['coupling_block_logdet']:.3e} "
+          f"(tol {G3_ATOL:.0e}), gradients {errs['coupling_block_grad']:.3e} (tol "
+          f"{G3_GRAD:.0e}), reverse of forward {errs['coupling_block_invert']:.3e} (tol "
+          f"{G3_INVERT:.0e}), forward + reverse {out['coupling_block_fwd_rev_ms']:.3f} ms; "
+          f"ConvFlow(2, {fc}, 3, 3 layers, 10 bins, tail 5.0) on [{fb}, {ft}, 2] with g "
+          f"[{fb}, {ft}, {fc}]: output {errs['conv_flow_out']:.3e}, log-det "
+          f"{errs['conv_flow_logdet']:.3e}, gradients {errs['conv_flow_grad']:.3e}, reverse "
+          f"of forward {errs['conv_flow_invert']:.3e}, forward + reverse "
+          f"{out['conv_flow_fwd_rev_ms']:.3f} ms")
+
+    # (c) melspec on the card
+    wav = 0.1 * torch.randn(*G3["wav"], generator=torch.Generator().manual_seed(36))
+    wav_c = wav.cuda()
+    with torch.no_grad():
+        errs["melspec_power"] = _g3_check("mel power", SP.melspec(wav_c, log=False),
+                                          SP.melspec(wav, log=False), G3_ATOL)
+        lm_c, lm_p = SP.melspec(wav_c), SP.melspec(wav)
+        errs["melspec_log_abs"] = float((lm_c.cpu() - lm_p).abs().max())
+        if not errs["melspec_log_abs"] <= G3_LOGMEL:
+            raise AssertionError(f"[g3] log-mel: card vs CPU {errs['melspec_log_abs']:.3e} > "
+                                 f"{G3_LOGMEL:.0e}")
+        out["melspec_ms"] = cuda_ms(lambda: SP.melspec(wav_c), iters=20, warmup=3)
+    print(f"[g3] (c) melspec [{G3['wav'][0]}, {G3['wav'][1]}] -> {tuple(lm_c.shape)}: power "
+          f"{errs['melspec_power']:.3e} of its largest (tol {G3_ATOL:.0e}), log-mel "
+          f"{errs['melspec_log_abs']:.3e} (tol {G3_LOGMEL:.0e}); {out['melspec_ms']:.3f} ms")
+
+    launches = dict(K.LAUNCHES)
+    if any(launches.values()):
+        raise AssertionError(f"[g3] launched a hand-written kernel: {launches}")
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    out["seconds"] = time.perf_counter() - t0
+    out["max_err"] = errs
+    print(f"[g3] {card}: peak {out['peak_gib']:.3f} GiB, {out['seconds']:.1f} s, kernel "
+          f"launches {launches}")
+    return launches, out
+
+
 def _tree_diff(a, b) -> float:
     """max |a - b| over two trees of the same structure."""
     from scl_deepfake_audio_detection_torch.utils.tree import keyed_leaves
@@ -3745,6 +4001,9 @@ def main() -> int:
         tools_launches, tools_stats = phase_tools(K, card, tmp)
     lap("tools")
     torch.cuda.empty_cache()
+    g3_launches, g3_stats = phase_g3(K, card)
+    lap("g3")
+    torch.cuda.empty_cache()
     train_times = phase_backward_times(K, A, card, KB, TRAIN_SHAPE)
     student_times = phase_backward_times(K, A, card, KB, STUDENT_SHAPE)
     tp_times = phase_backward_times(K, A, card, KB, TP_SHAPE)
@@ -3756,7 +4015,8 @@ def main() -> int:
           f"--device_aug {aug_launches}; remat per step "
           f"{ {k: v['launches'] for k, v in remat.items()} }; the model zoo {zoo}; "
           f"distillation {distill_launches}; the parallel path {par_launches}; the "
-          f"measurement tools and active learning {tools_launches}")
+          f"measurement tools and active learning {tools_launches}; Slice G3 (the conformer, "
+          f"the flows, melspec) {g3_launches}")
     # Each entry's launches belong to this slice's main path, the training CLI
     # under --mesh 1,1 --zero1 (phase_parallel (a)); its times to XLS-R 300M's
     # training shape, as in the entries of the slices before, so that they
@@ -3788,7 +4048,8 @@ def main() -> int:
                                  "zoo": zoo[name],
                                  **{k: v[name] for k, v in distill_launches.items()},
                                  **{f"parallel_{k}": v[name] for k, v in par_launches.items()},
-                                 "tools": tools_launches[name]},
+                                 "tools": tools_launches[name],
+                                 "g3": g3_launches[name]},
             **train_times[name],
             "student_shape": student_times[name],
             "tp_shape": tp_times[name],
@@ -3811,6 +4072,7 @@ def main() -> int:
     print("[conv-json] " + json.dumps({"card": card, **conv}))
     print("[parallel-json] " + json.dumps({"card": card, **par_stats}))
     print("[refckpt-json] " + json.dumps(refckpt))
+    print("[g3-json] " + json.dumps(g3_stats))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,4 +4,6 @@ Imports torch only, never jax and nothing of
 ``scl_deepfake_audio_detection_tpu``.
 """
 
-__version__ = "0.1.0"  # the JAX package's, whose artifacts and checkpoints it reads
+from scl_deepfake_audio_detection_torch.version import __version__
+
+__all__ = ["__version__"]

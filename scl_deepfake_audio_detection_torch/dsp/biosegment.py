@@ -16,9 +16,12 @@ input's device, so the tokens of a batch on the card are computed there:
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
+
+from scl_deepfake_audio_detection_torch.utils.device import resolve_device
 
 N_BIOS = 3
 SILENCE, TALKING, BREATHING = 0, 1, 2
@@ -47,3 +50,11 @@ def wav2bio(wav: torch.Tensor, sr: int = 16000, hop_ms: float = 20.0,
     tokens = torch.where(e > peak - upper_db, TALKING,
                          torch.where(e < peak - lower_db, SILENCE, BREATHING))
     return tokens.to(torch.int32)
+
+
+def wav2bio_np(wav: np.ndarray, sr: int = 16000,
+               device: Optional[Union[str, torch.device]] = None, **kw) -> np.ndarray:
+    """Host wrapper of ``wav2bio``: numpy in, int32 numpy out, the tokens
+    computed on ``device`` (the card unless ``device="cpu"``)."""
+    x = torch.as_tensor(np.asarray(wav), device=resolve_device(device))
+    return wav2bio(x, sr=sr, **kw).cpu().numpy()

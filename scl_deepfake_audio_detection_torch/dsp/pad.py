@@ -6,14 +6,19 @@ Counterpart of ``scl_deepfake_audio_detection_tpu/dsp/pad.py``:
 - train ``batch_pad_for_multiview`` (``wav_augmentation.py:209-282``): the
   views of an anchor group are length-matched to view 0 (tiled or
   zero-padded), then one random 64000-sample crop is taken from all of
-  them, so every view covers the same stretch of speech.
+  them, so every view covers the same stretch of speech;
+- the silence trims ``wav_rand_sil_trim`` and
+  ``batch_siltrim_for_multiview`` (``wav_augmentation.py:78-206``), over
+  the energy VAD's speech bounds (``dsp/vad.speech_bounds_samples``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
+
+from scl_deepfake_audio_detection_torch.dsp.vad import speech_bounds_samples
 
 
 def pad_eval(x: np.ndarray, padding_type: str = "zero", max_len: int = 64600) -> np.ndarray:
@@ -39,6 +44,45 @@ def _match_length(x: np.ndarray, length: int, repeat_pad: bool) -> np.ndarray:
     out = np.zeros(length, dtype=x.dtype)
     out[: x.shape[0]] = x
     return out
+
+
+def rand_sil_trim(
+    x: np.ndarray,
+    sr: int = 16000,
+    random_trim_sil: bool = False,
+    rng: Optional[np.random.Generator] = None,
+):
+    """Trim leading and trailing silence by the energy VAD; with
+    ``random_trim_sil`` keep a random fraction of it (``wav_rand_sil_trim``,
+    ``wav_augmentation.py:78-140``).
+
+    Returns ``(trimmed, start, end)`` with ``trimmed = x[start:end]``; a
+    degenerate range (or one starting at 0, the reference's guard) passes
+    the input through unchanged."""
+    start, end = speech_bounds_samples(x, sr)
+    if random_trim_sil:
+        rng = rng or np.random.default_rng()
+        prob = rng.random()
+        start = int(start * prob)
+        end = int((x.shape[0] - end) * prob) + end
+    if 0 < start < end:
+        return x[start:end], start, end
+    return x, 0, x.shape[0]
+
+
+def multiview_silence_trim(
+    views: Sequence[np.ndarray],
+    sr: int = 16000,
+    random_trim_sil: bool = False,
+    rng: Optional[np.random.Generator] = None,
+) -> List[np.ndarray]:
+    """Co-trim every view at the silence bounds of view 0
+    (``batch_siltrim_for_multiview``, ``wav_augmentation.py:170-206``), so
+    that the views stay sample-aligned."""
+    _, start, end = rand_sil_trim(views[0], sr, random_trim_sil, rng)
+    if 0 < start < end:
+        return [v[start:end] for v in views]
+    return list(views)
 
 
 def multiview_pad(views: Sequence[np.ndarray], length: int, repeat_pad: bool = True,

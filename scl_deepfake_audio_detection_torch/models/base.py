@@ -97,25 +97,33 @@ class LayerNorm(Initialised):
 
 class Conv1d(Initialised):
     """weight [Cout, Cin/groups, K], optional bias [Cout]; torch-style
-    uniform fan-in init."""
+    uniform fan-in init, or zeros where ``zero_init`` is set (the flows'
+    coupling projections, ``ops/flows._zero_conv``)."""
 
     def __init__(self, in_dim: int, out_dim: int, kernel: int,
                  bias: bool = True, groups: int = 1):
         super().__init__()
         self.groups = groups
+        self.zero_init = False
         self.weight = nn.Parameter(torch.empty(out_dim, in_dim // groups, kernel))
         self.bias = nn.Parameter(torch.empty(out_dim)) if bias else None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
+        if self.zero_init:
+            self.weight.data.zero_()
+            if self.bias is not None:
+                self.bias.data.zero_()
+            return
         bound = 1.0 / math.sqrt(self.weight.shape[1] * self.weight.shape[2])
         self.weight.data.uniform_(-bound, bound, generator=generator)
         if self.bias is not None:
             self.bias.data.uniform_(-bound, bound, generator=generator)
 
     def forward(self, x: torch.Tensor, stride: int = 1, padding="VALID",
-                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                compute_dtype: Optional[torch.dtype] = None,
+                dilation: int = 1) -> torch.Tensor:
         return conv1d(x, self.weight, self.bias, stride=stride, padding=padding,
-                      groups=self.groups, compute_dtype=compute_dtype)
+                      groups=self.groups, dilation=dilation, compute_dtype=compute_dtype)
 
 
 class Conv2d(Initialised):

@@ -44,9 +44,10 @@ _MODULE_LEAVES = {Linear: ("w", "b"), Conv1d: ("w", "b"), Conv2d: ("w", "b"),
                   LayerNorm: ("scale", "bias"), BatchNorm: ("scale", "bias"),
                   Embedding: ("w",)}
 # the modules whose ``w`` is a token table [num, dim] in both packages (BTSE's
-# bio-token and position embeddings): the layout rule, which sees paths only,
-# leaves them as they are; a square table would otherwise pass transposed
-EMBEDDING_TABLES = ("bio_emb", "pos_emb")
+# bio-token and position embeddings, the conformer's relative-position
+# table): the layout rule, which sees paths only, leaves them as they are; a
+# square table would otherwise pass transposed
+EMBEDDING_TABLES = ("bio_emb", "pos_emb", "rel_pos")
 # kernel axes: torch -> JAX and JAX -> torch, by rank (linear, conv1d, conv2d)
 _TO_JAX = {2: (1, 0), 3: (2, 1, 0), 4: (2, 3, 1, 0)}
 _TO_TORCH = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}

@@ -86,6 +86,18 @@ def pcm16_encode(x: np.ndarray) -> np.ndarray:
     return np.clip(np.round(x * 32768.0), -32768, 32767).astype(np.int16)
 
 
+def pcm16_decode(x: np.ndarray) -> np.ndarray:
+    """int16 PCM -> float32 in [-1, 1) (the inverse of ``pcm16_encode``)."""
+    return x.astype(np.float32) / 32768.0
+
+
+def int16_scale(x: np.ndarray) -> np.ndarray:
+    """The reference's ``pydub_to_librosa`` int16-amplitude quirk
+    (``datautils/audio_augmentor/utils.py:20-23``): augmentors that round-trip
+    through pydub return samples scaled to the int16 range, not [-1, 1]."""
+    return np.clip(np.round(x * 32768.0), -32768, 32767).astype(np.float32)
+
+
 def save_wav(path: str, x: np.ndarray, sr: int = 16000) -> None:
     """Mono PCM16 WAV writer."""
     pcm = pcm16_encode(np.asarray(x, np.float32)).astype("<i2")

@@ -9,7 +9,7 @@ the list of valid choices.
 from __future__ import annotations
 
 import importlib
-from typing import Any, Dict, Iterable, Optional
+from typing import Any, Callable, Dict, Iterable, Optional
 
 
 class Registry:
@@ -65,3 +65,11 @@ def _populate(kind: str) -> None:
     import errors propagate."""
     for mod in _POPULATORS[kind]:
         importlib.import_module(mod)
+
+
+def resolve_augmentation(name: str) -> Callable:
+    """An augmentation method by its YAML name.  The reference's
+    ``augmentation_methods`` list holds function names looked up in the
+    dataset module's globals (``RawBoost12``, ``background_noise_wrapper``,
+    ``configs/conf-3-linear.yaml:12``), which stay the registry's keys."""
+    return AUGMENTATIONS.get(name)

@@ -745,3 +745,77 @@ def test_gan_steps_on_the_card_match_the_cpu(mode, tmp_path):
     assert back.load(str(tmp_path / "cuda" / "gan_last.ckpt")) == {"epoch": 0}
     for a, b in zip(back.gen.state_dict().values(), engs["cuda"].gen.state_dict().values()):
         assert torch.equal(a, b)
+
+
+def _card_vs_cpu(model, fn, x, atol, grad_rtol):
+    """``fn(model, x)`` -> a tensor or a tuple of them, run on a copy of
+    ``model`` on the card and on the CPU: outputs and buffers within
+    ``atol`` of their largest entry (or of 1), and the parameter and input
+    gradients of a seeded weighting of the outputs within ``grad_rtol`` of
+    each leaf's largest, a leaf below ``grad_rtol`` of the largest of all
+    (zero up to rounding, such as the key bias ahead of the softmax) within
+    ``grad_rtol`` of that."""
+    import copy
+
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        m = copy.deepcopy(model).to(dev)
+        xd = x.detach().clone().to(dev).requires_grad_(True)
+        out = fn(m, xd)
+        out = out if isinstance(out, tuple) else (out,)
+        gen = torch.Generator().manual_seed(3)
+        sum((o.float() * torch.randn(o.shape, generator=gen).to(dev)).sum() for o in out).backward()
+        grads = {n: p.grad for n, p in m.named_parameters()}
+        grads["x"] = xd.grad
+        runs[dev] = ([o.detach().cpu() for o in out], {k: g.cpu() for k, g in grads.items()},
+                     {k: b.cpu() for k, b in m.named_buffers()})
+    (out_c, g_c, b_c), (out_p, g_p, b_p) = runs["cuda"], runs["cpu"]
+    for a, w in zip(out_c, out_p):
+        assert float((a - w).abs().max()) <= atol * max(float(w.abs().max()), 1.0)
+    top = max(float(g.abs().max()) for g in g_p.values())
+    for k in g_p:
+        scale = max(float(g_p[k].abs().max()), grad_rtol * top)
+        err = float((g_c[k] - g_p[k]).abs().max()) / scale
+        assert err <= grad_rtol, (k, err)
+    for k in b_p:
+        assert float((b_c[k] - b_p[k]).abs().max()) <= atol * max(float(b_p[k].abs().max()), 1.0), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("train", [False, True], ids=["eval", "train"])
+def test_conformer_on_the_card_matches_the_cpu(train):
+    """``models/conformer`` at tiny width on the card against the CPU on the
+    same weights (fp32, TF32 off): output and running statistics within
+    1e-5, gradients within 1e-3 of each leaf's largest (``phase_g3``'s
+    rule; the card's sums run in another order)."""
+    _need_card()
+    from scl_deepfake_audio_detection_torch.models.base import init_parameters
+    from scl_deepfake_audio_detection_torch.models.conformer import Conformer, ConformerConfig
+
+    model = init_parameters(Conformer(ConformerConfig(dim=32, depth=2, dim_head=8, heads=4,
+                                                      conv_kernel=7, max_pos_emb=8)),
+                            torch.Generator().manual_seed(0))
+    x = torch.randn(2, 21, 32, generator=torch.Generator().manual_seed(1))
+    _card_vs_cpu(model, lambda m, xx: m(xx, train=train), x, 1e-5, 1e-3)
+
+
+@pytest.mark.gpu
+def test_conv_flow_on_the_card_matches_the_cpu_and_inverts():
+    """``ops/flows.ConvFlow`` at tiny width (its projection seeded, not zero)
+    with a ragged mask on the card against the CPU: output, log-det and
+    gradients as above, and its reverse undoes its forward within 1e-4."""
+    _need_card()
+    from scl_deepfake_audio_detection_torch.models.base import init_parameters
+    from scl_deepfake_audio_detection_torch.ops.flows import ConvFlow
+
+    g = torch.Generator().manual_seed(2)
+    model = init_parameters(ConvFlow(4, 16, 3, 3, num_bins=10, tail_bound=5.0), g)
+    with torch.no_grad():
+        model.proj.weight.normal_(0.0, 0.05, generator=g)
+    x = 2.0 * torch.randn(2, 17, 4, generator=g)
+    mask = (torch.arange(17)[None, :] < torch.tensor([17, 11])[:, None]).float()[..., None]
+    _card_vs_cpu(model, lambda m, xx: m(xx, mask.to(xx.device)), x, 1e-5, 1e-3)
+    m = model.cuda()
+    y, _ = m(x.cuda(), mask.cuda())
+    back = m(y, mask.cuda(), reverse=True)
+    assert float((back.cpu() - x * mask).abs().max()) <= 1e-4

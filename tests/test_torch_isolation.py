@@ -76,6 +76,30 @@ def test_the_parallel_tests_ranks_import_no_jax():
     assert r.returncode == 0, r.stdout + r.stderr
 
 
+SLICE_G3_MODULES = ("version", "models.conformer", "ops.flows", "ops.seq_utils",
+                    "dsp.spectral", "dsp.morph", "dsp.vad", "dsp.pad", "dsp.biosegment")
+
+
+def test_the_sweep_holds_the_conformer_flow_and_dsp_modules():
+    """The conformer, the flows and sequence utilities and the DSP remainder
+    are in the sweep, and importing them alone leaves JAX out (``dsp/pad``'s
+    trims take the port's own VAD)."""
+    mods = set(_port_modules())
+    names = [f"{port.__name__}.{m}" for m in SLICE_G3_MODULES]
+    assert set(names) <= mods, sorted(set(names) - mods)
+    code = (
+        "import importlib, sys\n"
+        f"for m in {names!r}:\n"
+        "    importlib.import_module(m)\n"
+        f"bad = sorted(n for n in sys.modules if n.split('.')[0] in {FORBIDDEN!r})\n"
+        "print('BAD', bad)\n"
+        "raise SystemExit(1 if bad else 0)\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
 def test_the_sweep_holds_the_distillation_and_codec_modules():
     mods = set(_port_modules())
     for m in ("train.distill", "dsp.codec", "ops.losses"):
